@@ -1,0 +1,277 @@
+"""Client: local trainer for one federated participant (PyTorch).
+
+Counterpart of ``fedfr_tpu/federated/client.py`` (reference client.py:116-582)
+for the joint public-data objective.  Between rounds a client keeps its
+local FC, its BCE state_dict and its last-round backbone state_dict on the
+device; a local run loads them into modules that every client shares (the
+server's work modules), trains, and copies the results back out.
+"""
+
+from __future__ import annotations
+
+import copy
+import logging
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import FedFRConfig
+from ..data.datasets import BatchLoader, CombinedDataset, FaceRecordDataset
+from ..data.pipeline import DevicePrefetcher
+from ..models import BCEModule, build_backbone
+from ..utils.device import resolve_device
+from ..utils.optim import step_lr
+from .embed import class_mean_features, embed_dataset, max_similarity
+from .trainer import init_client_state, make_branch_train_step
+
+logger = logging.getLogger("fedfr_tpu_torch.client")
+
+StateDict = Dict[str, torch.Tensor]
+FlipFn = Callable[[int, torch.Tensor], object]
+
+
+def _loader_seed(seed: int, round_seed: int, cid: int) -> int:
+    """Per-(round, client) loader shuffle seed (the JAX package's formula,
+    so both packages shuffle a client's data alike)."""
+    return seed + 1_000_003 * round_seed + cid
+
+
+def _flip_seed(seed: int, round_seed: int, cid: int) -> int:
+    """Per-(round, client) seed of the augmentation flip generator."""
+    return (seed * 1_000_003 + round_seed) * 1_000_003 + cid + 7
+
+
+def _detached(module: nn.Module) -> StateDict:
+    return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+
+class Client:
+    """One participant.
+
+    ``backbone`` and ``bce_module`` are the modules a local run trains and
+    ``last_net`` the frozen module the last-round model runs in; a server
+    shares one of each among all its clients.  ``flip_fn(step_no, images)``,
+    when given, returns the (B,) flip mask of each step in place of the
+    client's own seeded generator (the parity tests inject the JAX
+    package's masks through it).
+    """
+
+    def __init__(self, cid: int, cfg: FedFRConfig, dataset: FaceRecordDataset,
+                 backbone: nn.Module, bce_module: Optional[nn.Module], *,
+                 last_net: Optional[nn.Module] = None,
+                 device=None, flip_fn: Optional[FlipFn] = None):
+        self.cid = cid
+        self.cfg = cfg
+        self.dataset = dataset
+        self.backbone = backbone
+        self.bce_module = bce_module
+        self.device = resolve_device(cfg.runtime.device if device is None else device)
+        self.num_classes = int(dataset.num_classes or 0)
+        self.dataset_size = len(dataset)
+        self.flip_fn = flip_fn
+        self.last_net = last_net
+        if cfg.fed.contrastive and last_net is None:
+            self.last_net = copy.deepcopy(backbone).eval().requires_grad_(False)
+
+        # seeded per-client initial state, drawn on the CPU so it is the
+        # same on every device
+        E, seed, dev = cfg.model.embedding_size, cfg.runtime.seed, self.device
+        gen = torch.Generator().manual_seed(seed + 1000 + cid)
+        # FC_module init: N(0, 0.01) rows (client.py:66)
+        self.fc_local = (0.01 * torch.randn(self.num_classes, E, generator=gen)).to(dev)
+        self.bce_state: Optional[StateDict] = None
+        if cfg.fed.bce_local:
+            bce = BCEModule(E, self.num_classes, cfg.model.converter_layers,
+                            m=cfg.loss.bce_margin, r=cfg.loss.bce_scale,
+                            t=cfg.loss.bce_t,
+                            generator=torch.Generator().manual_seed(seed + 2000 + cid))
+            self.bce_state = {k: v.to(dev) for k, v in bce.state_dict().items()}
+        # MOON "last model": randomly initialized at client creation
+        # (client.py:153), replaced by the trained backbone each round
+        self.last_backbone: Optional[StateDict] = None
+        if cfg.fed.contrastive:
+            net = build_backbone(cfg.model.network, E, cfg.model.bf16,
+                                 cfg.data.image_size,
+                                 generator=torch.Generator().manual_seed(seed + 3000 + cid))
+            self.last_backbone = {k: v.to(dev) for k, v in net.state_dict().items()}
+
+        self.last_loss = 0.0
+        self.mined = 0  # public images above the mining threshold, last run
+        self.trained_backbone: Optional[StateDict] = None
+        self.global_fc: Optional[torch.Tensor] = None
+
+    # ------------------------------------------------------------- FC init
+
+    def init_fc_from_means(self, global_net: nn.Module,
+                           normalize_before: bool = False) -> None:
+        """Mean-embedding FC initialization (reference data_update_fc,
+        client.py:159-188)."""
+        feats, labels = embed_dataset(global_net, self.dataset,
+                                      self.cfg.data.eval_batch_size,
+                                      l2norm=False, device=self.device,
+                                      num_workers=self.cfg.data.num_workers)
+        self.fc_local = class_mean_features(feats, labels, self.num_classes,
+                                            normalize_before)
+
+    def init_bce_from_fc(self) -> None:
+        """BCE weight := local FC rows (reference server.py:128-133)."""
+        if self.bce_state is not None:
+            self.bce_state = dict(self.bce_state, weight=self.fc_local.clone())
+
+    # ------------------------------------------------------------ training
+
+    def select_hard_negatives(self, global_net: nn.Module,
+                              public_dataset: FaceRecordDataset,
+                              public_feats: torch.Tensor,
+                              public_labels: np.ndarray) -> FaceRecordDataset:
+        """Feature-based mining (client.py:191-224): embed the local set with
+        the current global model, keep public images whose max cos-sim to
+        any local image exceeds the threshold."""
+        local_feats, _ = embed_dataset(global_net, self.dataset,
+                                       self.cfg.data.eval_batch_size,
+                                       l2norm=True, device=self.device,
+                                       num_workers=self.cfg.data.num_workers)
+        scores = max_similarity(local_feats, public_feats).cpu().numpy()
+        mask = scores > self.cfg.fed.hn_threshold
+        cap = self.cfg.fed.hn_cap
+        if cap and int(mask.sum()) > cap:
+            # bounded-cost variant (DESIGN.md deviation 8): keep only the cap
+            # HARDEST images (highest max cos-sim), ties by image index
+            over = np.nonzero(mask)[0]
+            keep = over[np.argsort(scores[over], kind="stable")[::-1][:cap]]
+            mask = np.zeros_like(mask)
+            mask[keep] = True
+            logger.info("client %d: mining capped at %d hardest (of %d above "
+                        "threshold)", self.cid, cap, len(over))
+        imgidx = np.nonzero(mask)[0] + 1  # record keys are 1-based
+        self.mined = len(imgidx)
+        num_ids = len(np.unique(public_labels[mask])) if mask.any() else 0
+        logger.info("client %d: %d imgs (%d IDs) hard negative @ > %.2f",
+                    self.cid, len(imgidx), num_ids, self.cfg.fed.hn_threshold)
+        if len(imgidx) == 0:
+            imgidx = np.array([1])
+        return public_dataset.subset(imgidx)
+
+    def prepare_local_run(self, global_net: nn.Module, public_dataset,
+                          pretrained_fc: torch.Tensor, public_feats: torch.Tensor,
+                          public_labels: np.ndarray, round_seed: int = 0):
+        """Mining + combined loader + initial train state for one local run.
+
+        Returns (combined dataset, loader, state, last_net): ``state`` holds
+        the shared work modules loaded with this run's starting weights.
+        """
+        cfg = self.cfg
+        public_subset = self.select_hard_negatives(
+            global_net, public_dataset, public_feats, public_labels)
+        combined = CombinedDataset(self.dataset, public_subset)
+        self.dataset_size = len(combined)  # FedAvg weight (client.py:303)
+
+        loader = BatchLoader(combined, cfg.data.combined_batch_size, shuffle=True,
+                             seed=_loader_seed(cfg.runtime.seed, round_seed, self.cid),
+                             drop_last=True, num_workers=cfg.data.num_workers)
+
+        self.backbone.load_state_dict(global_net.state_dict())
+        bce = None
+        if self.bce_state is not None:
+            self.bce_module.load_state_dict(self.bce_state)
+            bce = self.bce_module
+        # fc = [local ; global] (client.py:313)
+        fc = torch.cat([self.fc_local, pretrained_fc.to(self.device)])
+        state = init_client_state(self.backbone, fc, bce, cfg.optim.lr,
+                                  cfg.optim.momentum, cfg.optim.weight_decay)
+        last_net = global_net
+        if self.last_backbone is not None:
+            self.last_net.load_state_dict(self.last_backbone)
+            last_net = self.last_net
+        return combined, loader, state, last_net
+
+    def finalize_local_run(self, state, avg_loss: float) -> None:
+        """Keep the trained state (client.py:468-508); the optimizer's
+        momentum is dropped (the reference builds a fresh SGD per run)."""
+        if not np.isfinite(avg_loss):
+            logger.warning(
+                "client %d: NON-FINITE loss %r — the local run diverged and "
+                "FedAvg will propagate it to the global model (sphere nets "
+                "typically need lr <= 0.001, reference run.sh:2)",
+                self.cid, avg_loss)
+        fc = state.fc.detach()
+        self.fc_local = fc[: self.num_classes].clone()
+        self.global_fc = fc[self.num_classes:].clone()
+        self.bce_state = _detached(state.bce) if state.bce is not None else None
+        self.trained_backbone = _detached(state.backbone)
+        if self.last_backbone is not None:
+            self.last_backbone = self.trained_backbone
+        self.last_loss = float(avg_loss)
+
+    def _flip(self, step_no: int, imgs: torch.Tensor,
+              gen: torch.Generator) -> torch.Tensor:
+        if self.flip_fn is not None:
+            return torch.as_tensor(np.asarray(self.flip_fn(step_no, imgs)),
+                                   dtype=torch.bool, device=imgs.device)
+        return torch.rand(imgs.shape[0], generator=gen, device=imgs.device) < 0.5
+
+    def train_with_public_data(self, global_net: nn.Module, public_dataset,
+                               pretrained_fc: torch.Tensor,
+                               public_feats: torch.Tensor,
+                               public_labels: np.ndarray,
+                               local_epochs: int, train_decay: int,
+                               step_fn=None, round_seed: int = 0) -> Dict[str, float]:
+        """One local run of the joint objective (client.py:287-508)."""
+        cfg = self.cfg
+        combined, base_loader, state, last_net = self.prepare_local_run(
+            global_net, public_dataset, pretrained_fc, public_feats,
+            public_labels, round_seed)
+        loader = DevicePrefetcher(base_loader, self.device, depth=cfg.data.prefetch)
+        if len(loader) == 0:
+            base_loader.close()
+            raise ValueError(
+                f"client {self.cid}: combined dataset ({len(combined)} imgs) "
+                f"smaller than the batch size {cfg.data.combined_batch_size}")
+        if step_fn is None:
+            step_fn = make_branch_train_step(
+                margin=cfg.loss.loss, s=cfg.loss.margin_s, m=cfg.loss.margin_m,
+                bce_weight=cfg.loss.bce_weight, bce_r=cfg.loss.bce_r,
+                bce_lambda=cfg.loss.bce_lambda, mu=cfg.loss.mu,
+                temperature=cfg.loss.temperature, bce_detach=cfg.fed.bce_detach,
+                contrastive=cfg.fed.contrastive, reweight=cfg.fed.reweight_cosface,
+                num_local=self.num_classes, num_clients=cfg.data.num_clients,
+                fedprox_mu=cfg.fed.fedprox_mu)
+
+        gen = None
+        if self.flip_fn is None:
+            gen = torch.Generator(device=self.device).manual_seed(
+                _flip_seed(cfg.runtime.seed, round_seed, self.cid))
+        # the loss sums stay on the device: one host sync per epoch; the
+        # reported loss is the mean over every step of the run (reference
+        # AverageMeter semantics, client.py:349-352,404)
+        acc = torch.zeros(4, device=self.device)
+        n_steps = 0
+        sums = np.zeros(4, np.float32)  # stays zero if local_epochs == 0
+        try:
+            for epoch in range(local_epochs):
+                lr = step_lr(cfg.optim.lr, epoch, train_decay, cfg.optim.lr_gamma)
+                tic = time.perf_counter()
+                epoch_steps = 0
+                for imgs, labels, valid in loader.epoch():
+                    flip = self._flip(n_steps, imgs, gen)
+                    state, metrics = step_fn(state, global_net, last_net, imgs,
+                                             labels, valid, lr, flip)
+                    acc += torch.stack(metrics)
+                    n_steps += 1
+                    epoch_steps += 1
+                sums = acc.cpu().numpy()  # the epoch's one host sync
+                speed = (epoch_steps * cfg.data.combined_batch_size
+                         / max(time.perf_counter() - tic, 1e-9))
+                mean = sums / max(n_steps, 1)
+                logger.info("client %d epoch %d/%d lr %.5f loss %.3f "
+                            "(cos %.3f bce %.3f con %.3f) %.1f samples/sec",
+                            self.cid, epoch + 1, local_epochs, lr,
+                            mean[0], mean[1], mean[2], mean[3], speed)
+        finally:
+            base_loader.close()  # even on a mid-run failure
+        self.finalize_local_run(state, sums[0] / max(n_steps, 1))
+        return {"loss": self.last_loss, "steps": n_steps,
+                "dataset_size": self.dataset_size}

@@ -1,0 +1,93 @@
+"""Batched embedding extraction and feature-space utilities.
+
+Counterpart of ``fedfr_tpu/federated/embed.py``: one eval-mode forward
+reused across mining and FC initialization, fed by the background decode +
+prefetch pipeline.  Features stay on the device.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..data.datasets import BatchLoader
+from ..data.pipeline import prefetched, to_device_batch
+from ..models.heads import l2_normalize
+from ..ops.max_sim import max_cosine_similarity
+from ..utils.device import resolve_device
+from .state import normalize_images
+
+
+@torch.no_grad()
+def embed_dataset(model: nn.Module, dataset, batch_size: int = 512,
+                  flip_test: bool = False, l2norm: bool = True,
+                  device: Optional[Union[str, torch.device]] = "cuda",
+                  num_workers: int = 6, prefetch: int = 2
+                  ) -> Tuple[torch.Tensor, np.ndarray]:
+    """Embed every active item of a record dataset in dataset order ->
+    ((N, E) float32 features on ``device``, (N,) int64 labels).
+
+    ``model`` must already live on ``device``; it runs in eval mode.
+    ``flip_test`` sums the embeddings of the image and its horizontal
+    mirror (reference local_all.py:209-215).
+    """
+    device = resolve_device(device)
+    param = next(model.parameters())
+    if param.device.type != device.type:
+        raise ValueError(f"model is on {param.device}, embedding asked on {device}")
+    model.eval()
+    n = len(dataset)
+    chunks = []
+    labels_out = np.empty(n, dtype=np.int64)
+    pos = 0
+    with BatchLoader(dataset, batch_size, shuffle=False, drop_last=False,
+                     num_workers=num_workers) as loader:
+        # only the images go to the device; labels and the mask stay on the
+        # host, so the loop never waits for the device
+        batches = ((to_device_batch((imgs,), device)[0], labels, valid)
+                   for imgs, labels, valid in loader.epoch())
+        for imgs, labels, valid in prefetched(batches, prefetch):
+            nvalid = int(valid.sum())
+            f = model(normalize_images(imgs))
+            if flip_test:
+                f = f + model(normalize_images(imgs.flip(2)))
+            chunks.append(f[:nvalid].float())
+            labels_out[pos:pos + nvalid] = labels[:nvalid]
+            pos += nvalid
+    feats = torch.cat(chunks)
+    if l2norm:
+        feats = l2_normalize(feats, dim=1)
+    return feats, labels_out
+
+
+def class_mean_features(feats: torch.Tensor, labels: np.ndarray,
+                        num_classes: int, normalize_before: bool = False
+                        ) -> torch.Tensor:
+    """Per-class mean embedding (FC initialization, reference client.py:159-188)."""
+    f = l2_normalize(feats, dim=1) if normalize_before else feats
+    idx = torch.as_tensor(labels, device=f.device, dtype=torch.long)
+    out = torch.zeros(num_classes, f.shape[1], dtype=torch.float32, device=f.device)
+    out.index_add_(0, idx, f.float())
+    counts = torch.bincount(idx, minlength=num_classes).clamp_min(1)
+    return out / counts[:, None].to(out.dtype)
+
+
+def max_similarity(local_feats: torch.Tensor, public_feats: torch.Tensor
+                   ) -> torch.Tensor:
+    """(n_public,) max cos-sim of each public image to ANY local image.
+
+    Both inputs must be l2-normalized.  On the card this is the mining
+    kernel (``ops/max_sim.py``); on the CPU its plain version.
+    """
+    return max_cosine_similarity(public_feats.float().contiguous(),
+                                 local_feats.float().contiguous())
+
+
+def hard_negative_mask(local_feats: torch.Tensor, public_feats: torch.Tensor,
+                       threshold: float) -> torch.Tensor:
+    """Boolean mask over public images with cos-sim > threshold to ANY local
+    image (feature-based hard-negative mining, reference client.py:191-224)."""
+    return max_similarity(local_feats, public_feats) > threshold

@@ -1,0 +1,217 @@
+"""Server: the federated coordinator (PyTorch).
+
+Counterpart of ``fedfr_tpu/federated/server.py`` (reference server.py:68-371)
+for the sequential training round: it holds the global backbone, dispatches
+the sampled clients each round, aggregates with dataset-size-weighted FedAvg
+over every state entry (BN statistics included) and averages the shared
+global FC.
+
+Not ported yet (ROADMAP queue A): the client-parallel and lockstep rounds,
+``Server.test`` and the local eval, SpreadOut, FC-row mining, the cached
+contrastive step, the plain (no public data) objective, pretrained weights
+from ``pretrained_root``, and checkpoints.  The config switches of those
+paths raise here instead of being ignored.
+"""
+
+from __future__ import annotations
+
+import copy
+import logging
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..config import FedFRConfig
+from ..data.datasets import AllClientData
+from ..models import BCEModule, build_backbone
+from ..parallel.fedavg import fedavg_on_fc, streaming_weighted_average
+from ..utils.device import resolve_device
+from .client import Client
+from .embed import class_mean_features, embed_dataset
+from .trainer import make_branch_train_step
+
+logger = logging.getLogger("fedfr_tpu_torch.server")
+
+
+def _check_ported(cfg: FedFRConfig) -> None:
+    unported = {
+        "runtime.pretrained_root (loading pretrained .pth weights)":
+            bool(cfg.runtime.pretrained_root),
+        "fed.add_pretrained_data=False (the plain objective)":
+            not cfg.fed.add_pretrained_data,
+        "fed.spreadout": cfg.fed.spreadout,
+        "fed.hn_strategy='fc' (FC-row mining)": cfg.fed.hn_strategy == "fc",
+        "fed.cache_contrastive": cfg.fed.cache_contrastive,
+        "model.freeze_bn": cfg.model.freeze_bn,
+    }
+    bad = [name for name, on in unported.items() if on]
+    if bad:
+        raise NotImplementedError(
+            "not ported to the PyTorch package yet (ROADMAP queue A): "
+            + ", ".join(bad))
+
+
+class Server:
+    def __init__(self, cfg: FedFRConfig, data: AllClientData,
+                 local_eval_callback: Optional[Callable] = None):
+        _check_ported(cfg)
+        self.cfg = cfg
+        self.data = data
+        self.device = resolve_device(cfg.runtime.device)
+        self.local_eval_callback = local_eval_callback
+        self.rng = np.random.default_rng(cfg.runtime.seed)
+
+        # the global model, frozen: mining, the public embed and the MOON
+        # "global" term read it; aggregation writes it
+        net = build_backbone(cfg.model.network, cfg.model.embedding_size,
+                             cfg.model.bf16, cfg.data.image_size,
+                             generator=torch.Generator().manual_seed(cfg.runtime.seed))
+        self.global_net = net.to(self.device).eval().requires_grad_(False)
+        logger.info("train from scratch")
+        # work modules every client's local run loads its weights into
+        self.backbone = copy.deepcopy(self.global_net).requires_grad_(True)
+        self.last_net = copy.deepcopy(self.global_net)
+        self.bce_module = BCEModule(cfg.model.embedding_size,
+                                    data.train_class_sizes[0],
+                                    cfg.model.converter_layers,
+                                    m=cfg.loss.bce_margin, r=cfg.loss.bce_scale,
+                                    t=cfg.loss.bce_t).to(self.device)
+
+        self.clients: List[Client] = [
+            Client(cid, cfg, data.client(cid), self.backbone, self.bce_module,
+                   last_net=self.last_net, device=self.device)
+            for cid in range(cfg.data.num_clients)]
+
+        # clients sampled for per-round local verification (server.py:107);
+        # drawn here as in the JAX package so the sampling stream matches
+        self.local_candidates = sorted(
+            self.rng.permutation(cfg.data.num_clients)[
+                : cfg.fed.num_local_eval_clients].tolist())
+
+        self.local_epoch = cfg.fed.local_epochs
+        self.train_decay = cfg.optim.train_decay
+        self.global_round = 0
+        self.global_epoch = 0
+        self.current_client_list: List[int] = []
+
+        # pretrained (public) FC + labels
+        self.pretrained_fc: Optional[torch.Tensor] = None
+        self.pretrained_labels: Optional[np.ndarray] = None
+        self._init_pretrain_fc()
+        if cfg.fed.init_fc:
+            self.initialize_local_fcs()
+        if cfg.fed.bce_local:
+            for c in self.clients:
+                c.init_bce_from_fc()
+        self._branch_step = None
+
+    def _embed(self, dataset, batch_size: int, l2norm: bool):
+        return embed_dataset(self.global_net, dataset, batch_size,
+                             l2norm=l2norm, device=self.device,
+                             num_workers=self.cfg.data.num_workers,
+                             prefetch=self.cfg.data.prefetch)
+
+    # ------------------------------------------------------------- FC init
+
+    def _init_pretrain_fc(self) -> None:
+        """Mean-embedding init of the global FC over the public set
+        (server.py:182-240)."""
+        self.pretrained_labels = self.data.public_dataset.all_labels().astype(np.int64)
+        feats, labels = self._embed(self.data.public_dataset,
+                                    self.cfg.data.public_batch_size, l2norm=False)
+        self.pretrained_fc = class_mean_features(feats, labels,
+                                                 int(labels.max()) + 1)
+        logger.info("generated pretrain FC %s", tuple(self.pretrained_fc.shape))
+
+    def initialize_local_fcs(self) -> None:
+        """Mean-embedding init of every client's local FC (server.py:157-180)."""
+        for c in self.clients:
+            c.init_fc_from_means(self.global_net)
+            logger.info("client %d FC initialized", c.cid)
+
+    # ------------------------------------------------------------ rounds
+
+    def generate_public_features(self) -> torch.Tensor:
+        """Per-round embed of the whole public set for HN mining
+        (server.py:242-263); the features stay on the device."""
+        feats, _ = self._embed(self.data.public_dataset,
+                               self.cfg.data.public_batch_size, l2norm=True)
+        return feats
+
+    def sample_clients(self) -> List[int]:
+        n = self.cfg.data.num_clients
+        k = int(round(self.cfg.fed.client_sampled_ratio * n))
+        return sorted(self.rng.choice(n, size=k, replace=False).tolist())
+
+    def _check_uniform_classes(self) -> None:
+        """The shared branch step bakes ``num_local`` from client 0 (the
+        reweight split of local vs global logit columns depends on it); a
+        client with another local class count would split at the wrong
+        boundary.  The reference assumes uniform 100-ID clients."""
+        counts = {c.num_classes for c in self.clients}
+        if len(counts) > 1:
+            raise ValueError(
+                f"clients have ragged local class counts {sorted(counts)}; "
+                f"the joint branch objective requires uniform shards "
+                f"(reference split_FL.py relabels every client 0..99)")
+
+    def train_round(self) -> Dict[str, float]:
+        cfg = self.cfg
+        if not self.current_client_list:
+            self.current_client_list = self.sample_clients()
+        public_feats = self.generate_public_features()
+
+        # adaptive local-epoch schedule (server.py:278-280)
+        if cfg.fed.adaptive_local_epoch and self.global_round != 0:
+            self.local_epoch = max(4, self.local_epoch - 2)
+            self.train_decay = max(1, int(3 / 4 * self.local_epoch))
+
+        self._check_uniform_classes()
+        if self._branch_step is None:
+            self._branch_step = make_branch_train_step(
+                margin=cfg.loss.loss, s=cfg.loss.margin_s, m=cfg.loss.margin_m,
+                bce_weight=cfg.loss.bce_weight, bce_r=cfg.loss.bce_r,
+                bce_lambda=cfg.loss.bce_lambda, mu=cfg.loss.mu,
+                temperature=cfg.loss.temperature, bce_detach=cfg.fed.bce_detach,
+                contrastive=cfg.fed.contrastive, reweight=cfg.fed.reweight_cosface,
+                num_local=self.clients[0].num_classes,
+                num_clients=cfg.data.num_clients, fedprox_mu=cfg.fed.fedprox_mu)
+
+        models, fcs, sizes, losses = [], [], [], []
+        for pos, cid in enumerate(self.current_client_list):
+            client = self.clients[cid]
+            logger.info("round %d [%d/%d] client %d training", self.global_round,
+                        pos + 1, len(self.current_client_list), cid)
+            if (self.local_eval_callback is not None and self.global_round == 0
+                    and cid in self.local_candidates):
+                # pretrain baseline entry, epoch -1 (client.py:331-333)
+                self.local_eval_callback(self, client, epoch=-1)
+            stats = client.train_with_public_data(
+                self.global_net, self.data.public_dataset, self.pretrained_fc,
+                public_feats, self.pretrained_labels, self.local_epoch,
+                self.train_decay, step_fn=self._branch_step,
+                round_seed=self.global_round)
+            losses.append(stats["loss"])
+            sizes.append(stats["dataset_size"])
+            models.append(client.trained_backbone)
+            if cfg.fed.return_all and client.global_fc is not None:
+                fcs.append(client.global_fc)
+            if self.local_eval_callback is not None and cid in self.local_candidates:
+                self.local_eval_callback(self, client)
+
+        logger.info("round %d avg client loss %.5f", self.global_round,
+                    float(np.mean(losses)))
+        # FedAvg over every state entry, BN stats included (server.py:322-338)
+        self.global_net.load_state_dict(streaming_weighted_average(models, sizes))
+        if cfg.fed.return_all and fcs:
+            self.pretrained_fc = fedavg_on_fc(self.pretrained_fc,
+                                              torch.stack(fcs), sizes, p=1.0)
+        return {"avg_loss": float(np.mean(losses))}
+
+    def advance_round(self) -> None:
+        """Counter bookkeeping after a round (reference train.py:87-88); clears
+        the round's client sample so the next round draws a fresh one."""
+        self.global_epoch += self.local_epoch
+        self.global_round += 1
+        self.current_client_list = []

@@ -1,0 +1,16 @@
+from .factory import ToyNet, build_backbone
+from .heads import BCEModule, LinearConverter, cosine_logits, l2_normalize
+from .layers import PReLU
+from .sphnet import SphNet, SphereBlock
+
+__all__ = [
+    "build_backbone",
+    "BCEModule",
+    "LinearConverter",
+    "cosine_logits",
+    "l2_normalize",
+    "PReLU",
+    "SphNet",
+    "SphereBlock",
+    "ToyNet",
+]

@@ -1,0 +1,48 @@
+"""Backbone factory (counterpart of ``fedfr_tpu/models/factory.py``)."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .layers import batch_norm, conv3x3
+from .sphnet import SphNet
+
+
+class ToyNet(nn.Module):
+    """Tiny conv embedder (global-avg-pool, any input size) for tests/smoke.
+
+    The JAX ``ToyNet`` has no reference counterpart, so its state_dict keys
+    are the port's own: ``conv1.weight``, ``bn1.*``, ``conv2.weight``,
+    ``fc.{weight,bias}``.
+    """
+
+    def __init__(self, embedding_size: int = 32):
+        super().__init__()
+        self.conv1 = conv3x3(3, 16, stride=2)
+        self.bn1 = batch_norm(16)
+        self.conv2 = conv3x3(16, 32, stride=2)
+        self.fc = nn.Linear(32, embedding_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(self.bn1(self.conv1(x)))
+        x = torch.relu(self.conv2(x))
+        return self.fc(x.mean(dim=(2, 3)))
+
+
+def build_backbone(name: str, embedding_size: int = 512, bf16: bool = True,
+                   image_size: int = 112,
+                   generator: torch.Generator = None) -> nn.Module:
+    """``toy``, ``sphnet`` (sphere64) or ``sphnet20`` on the CPU; the caller
+    moves it to its device."""
+    if name == "toy":
+        return ToyNet(embedding_size=embedding_size)
+    if name in ("sphnet", "sphnet20"):
+        return SphNet(depth=20 if name == "sphnet20" else 64,
+                      embedding_size=embedding_size, bf16=bf16,
+                      image_size=image_size, generator=generator)
+    if name.startswith("iresnet"):
+        raise NotImplementedError(
+            f"'{name}' is not ported to the PyTorch package yet (ROADMAP "
+            f"queue A: iresnet, bottle and freeze_bn)")
+    raise ValueError(f"unknown backbone '{name}'")
