@@ -7,31 +7,52 @@ Phases, in order (any failure raises and the script exits non-zero):
 1. device  — requires CUDA; prints the card's name and power limit
    (nvidia-smi); switches TF32 off for the comparisons.
 2. build   — builds every CUDA kernel of the port from csrc/ (one nvcc per
-   source, started together) and prints the build seconds.
+   source, started together) and prints the build seconds and ptxas lines.
 3. kernels — each kernel against its plain PyTorch version on the card, at
    ragged small shapes and at the reference shape, with the tolerance
-   stated; times the kernel, the plain version and one library call
+   stated; times the kernel, the plain version and one library route
    (CUDA events), and computes the bound from the shapes.
-4. round   — writes a seeded rec split to a temporary directory, builds
-   ``Server`` at sphere64 / E=512 / bf16 trunk / batch 256 with the run.sh
-   federated flags, and runs two training rounds as train.py does.  Kernel
-   launch counts are set to 0 just before and read just after.  Checks
-   finite losses, a changed global model, and one mining launch per client
-   per round.  The last round runs under torch.profiler and prints its
-   device time by kernel (so its seconds include the profiler's cost).
+   * max_sim (mining): within 1e-5, at 420,671 public x 6,500 local x 512.
+   * roc_hist (the local 1:1 eval): identical on dyadic inputs (every dot
+     exact in fp32); otherwise equal pos and neg totals, an L1 bin
+     difference of at most 2 x the pairs whose fp64 similarity lies within
+     1e-6 of a bin edge, and TPR tables within 0.01; at 4,000 targets (one
+     client, 100 IDs x 40) against 160,000 rows (local_veri_4000) x 512,
+     timed on spread and on clustered scores.
+4. round   — writes a seeded rec split, a seeded local verification split
+   and a seeded agedb_30.bin to a temporary directory and runs two rounds
+   through the training CLI's own loop (``fedfr_tpu_torch.train``: setup,
+   run_round, finish) at sphere64 / E=512 / bf16 trunk / batch 256 with the
+   run.sh federated flags: each round trains, runs the per-client 1:1 eval
+   of both candidate clients (plus their epoch -1 baseline in round 0) and
+   the .bin verification, and exports.  Kernel launch counts are set to 0
+   just before and read just after.  Checks finite losses, a changed global
+   model, one mining launch per client per round, one ROC launch per
+   candidate per round plus the baselines, local_log.txt lines that
+   parse_log.py reads, finite accuracies and the .pth exports.  The last
+   round runs under torch.profiler and prints its device time by kernel (so
+   its seconds include the profiler's cost).
 
 The line before the last is a JSON object with every ported kernel; the
-last line is the device record.  Data counts, epochs and clients are cut
-from the reference scale; the widths (sphere64, E=512, 112x112, batch 256)
-are not.
+last line is the device record.  Widths are the reference's (sphere64,
+E=512, 112x112, batch 256); counts are cut:
+  * 2 clients x 100 IDs x 8 train images (reference: 40 clients x 100 IDs);
+  * a 4,000-image public set, 2,000 IDs x 2 (reference: 420,671 images);
+  * 2 local epochs, then 4; 2 rounds (reference: 10 epochs, 20 rounds);
+  * local_veri: 2 clients x 100 IDs x 10 images (reference: 4,000 IDs x 40);
+  * agedb_30.bin: 1,200 pairs (AgeDB-30: 6,000);
+  * random weights from seed 100 (reference: pretrained).
 """
 
 from __future__ import annotations
 
 import contextlib
+import glob
 import json
 import math
 import os
+import pickle
+import re
 import subprocess
 import tempfile
 import time
@@ -40,10 +61,11 @@ import numpy as np
 import torch
 
 import fedfr_tpu_torch.ops.max_sim as max_sim_mod
-from fedfr_tpu_torch.config import FedFRConfig
-from fedfr_tpu_torch.data import AllClientData, codec, write_split
-from fedfr_tpu_torch.federated import Server
+import fedfr_tpu_torch.ops.roc_hist as roc_hist_mod
+from fedfr_tpu_torch import train as train_cli
+from fedfr_tpu_torch.data import codec, write_split
 from fedfr_tpu_torch.ops._build import build_kernels, build_seconds, ptxas_info
+from fedfr_tpu_torch.ops.roc_histogram import tpr_at_fpr_table
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and fp32
 # operations/s outside the tensor cores
@@ -52,6 +74,12 @@ FP32_OPS_PER_S = 67e12
 
 MINING_TOL = 1e-5          # max |kernel - plain|: fp32 FFMA vs cuBLAS fp32 sums
 THRESHOLD = 0.4            # run.sh's hn_threshold
+TPR_TOL = 0.01             # TPR table entries (percent, 2 decimals)
+
+# the two line formats of local_log.txt that parse_log.py:18-22 reads (a
+# copy: the smoke does not import the repository's scripts)
+LOCAL_LOG_PATTERNS = (re.compile(r"Target label from (\d+) to (\d+)"),
+                      re.compile(r"Epoch (-?\d+), TPR \(-1 to -6\) = \[(.*)\]"))
 
 
 def log(phase: str, **fields) -> None:
@@ -97,7 +125,7 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    build_kernels(["max_sim"])
+    build_kernels(["max_sim", "roc_hist"])
     log("build", seconds=f"{time.perf_counter() - t0:.2f}",
         per_kernel={k: round(v, 2) for k, v in build_seconds.items()})
     for name, info in ptxas_info.items():
@@ -145,7 +173,7 @@ def check_mining(n_pub: int, n_loc: int, e: int, seed: int) -> float:
     return err
 
 
-def phase_kernels(n_pub: int, n_loc: int, e: int) -> dict:
+def phase_mining(n_pub: int, n_loc: int, e: int) -> dict:
     check_mining(130, 65, 512, seed=1)
     check_mining(1, 1, 512, seed=2)
     err = check_mining(n_pub, n_loc, e, seed=3)
@@ -179,67 +207,232 @@ def phase_kernels(n_pub: int, n_loc: int, e: int) -> dict:
     return record
 
 
+def _roc_case(n: int, t: int, e: int, seed: int, kind: str):
+    """(N, E) fp32 features and int32 labels laid out as local_veri: 40
+    images per identity, the target rows first.  ``spread``: random unit
+    rows (similarities spread over ~400 bins); ``clustered``: every row near
+    one direction (cos ~0.85, a handful of bins, as a sphere64 at random
+    weights gives); ``dyadic``: entries in {0, +-1/8, +-1/4}, so that every
+    dot is exact in fp32 (E <= 16 keeps it within [-1, 1])."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if kind == "dyadic":
+        vals = torch.tensor([0.0, 0.125, -0.125, 0.25, -0.25], device="cuda")
+        feats = vals[torch.randint(0, 5, (n, e), device="cuda", generator=gen)]
+    elif kind == "clustered":
+        center = _unit_rows(1, e, gen)
+        feats = center + 0.42 * _unit_rows(n, e, gen)
+        feats = feats / feats.norm(dim=1, keepdim=True)
+    else:
+        feats = _unit_rows(n, e, gen)
+    labels = (torch.arange(n, device="cuda", dtype=torch.int32) // 40)
+    return feats.contiguous(), labels.contiguous()
+
+
+def _near_edge_pairs(feats: torch.Tensor, t: int, chunk: int = 256) -> int:
+    """Pairs (i < t, i < j) whose fp64 similarity lies within 1e-6 of a bin
+    edge, counted in chunks of target rows on the card."""
+    f = feats.double()
+    j = torch.arange(feats.shape[0], device="cuda")[None, :]
+    count = 0
+    for i0 in range(0, t, chunk):
+        i1 = min(i0 + chunk, t)
+        x = (f[i0:i1] @ f.t() + 1.0) * 1000.0
+        near = (x - x.round()).abs() < 1e-3
+        i = torch.arange(i0, i1, device="cuda")[:, None]
+        count += int((near & (i < j)).sum())
+    return count
+
+
+def check_roc(n: int, t: int, e: int, seed: int, kind: str) -> int:
+    """The kernel against its plain version; returns the L1 bin difference."""
+    feats, labels = _roc_case(n, t, e, seed, kind)
+    before = roc_hist_mod.roc_hist_launches
+    got = roc_hist_mod.roc_histogram(feats, labels, t)
+    want = roc_hist_mod.roc_histogram_plain(feats, labels, t)
+    torch.cuda.synchronize()
+    launched = roc_hist_mod.roc_hist_launches - before
+    roc_hist_mod.roc_hist_launches = before
+    pairs = t * n - t * (t + 1) // 2
+    if launched != (1 if t > 0 else 0):
+        raise AssertionError(f"roc_hist {n}x{t}x{e}: {launched} launches")
+    if int(got.sum()) != pairs or int(want.sum()) != pairs:
+        raise AssertionError(f"roc_hist {n}x{t}x{e}: {int(got.sum())} and "
+                             f"{int(want.sum())} pairs counted, expected {pairs}")
+    l1 = int((got - want).abs().sum())
+    if kind == "dyadic":
+        if l1 != 0:
+            raise AssertionError(f"roc_hist {n}x{t}x{e} dyadic: L1 {l1} != 0")
+        log("kernels", case=f"roc {n}x{t}x{e} {kind}", l1_bins=l1, pairs=pairs)
+        return l1
+    for side, name in ((0, "pos"), (1, "neg")):
+        if int(got[side::2].sum()) != int(want[side::2].sum()):
+            raise AssertionError(f"roc_hist {n}x{t}x{e}: {name} totals differ")
+    near = _near_edge_pairs(feats, t)
+    if l1 > 2 * near:
+        raise AssertionError(f"roc_hist {n}x{t}x{e}: L1 {l1} > 2 x {near} "
+                             f"pairs near a bin edge")
+    tg = tpr_at_fpr_table(got.cpu().numpy().reshape(-1, 2))
+    tw = tpr_at_fpr_table(want.cpu().numpy().reshape(-1, 2))
+    if max(abs(a - b) for a, b in zip(tg, tw)) > TPR_TOL:
+        raise AssertionError(f"roc_hist {n}x{t}x{e}: TPR tables {tg} vs {tw}")
+    log("kernels", case=f"roc {n}x{t}x{e} {kind}", l1_bins=l1,
+        near_edge_pairs=near, pairs=pairs, tpr=tg)
+    return l1
+
+
+def roc_library(feats: torch.Tensor, labels: torch.Tensor, t: int,
+                chunk: int = 512) -> torch.Tensor:
+    """The library route: chunked fp32 ``torch.mm`` of target rows against
+    every row, the kernel's binning, one ``torch.bincount`` per chunk."""
+    n = feats.shape[0]
+    hist = torch.zeros(2 * roc_hist_mod.NUM_BINS, dtype=torch.int64, device="cuda")
+    j = torch.arange(n, device="cuda")[None, :]
+    for i0 in range(0, t, chunk):
+        i1 = min(i0 + chunk, t)
+        sim = torch.mm(feats[i0:i1], feats.t())
+        b = ((sim + 1.0) * 1000.0).to(torch.int32).clamp_(0, roc_hist_mod.NUM_BINS - 1)
+        comb = b * 2 + (labels[i0:i1, None] != labels[None, :])
+        valid = torch.arange(i0, i1, device="cuda")[:, None] < j
+        hist += torch.bincount(comb[valid], minlength=2 * roc_hist_mod.NUM_BINS)
+    return hist
+
+
+def phase_roc(n: int, t: int, e: int) -> dict:
+    check_roc(100, 37, 16, seed=11, kind="spread")
+    check_roc(50, 3, 16, seed=12, kind="spread")
+    check_roc(1000, 0, 16, seed=13, kind="spread")
+    check_roc(4097, 1000, 512, seed=14, kind="spread")
+    check_roc(1000, 333, 16, seed=15, kind="dyadic")
+    err = check_roc(n, t, e, seed=16, kind="spread")
+    check_roc(n, t, e, seed=17, kind="clustered")
+
+    launches = roc_hist_mod.roc_hist_launches
+    timed = {}
+    for kind, seed in (("clustered", 17), ("spread", 16)):
+        feats, labels = _roc_case(n, t, e, seed, kind)
+        timed[kind] = cuda_ms(lambda: roc_hist_mod.roc_histogram(feats, labels, t),
+                              5, f"roc kernel {kind}")
+    # the plain version and the library route on the spread case
+    plain_ms = cuda_ms(lambda: roc_hist_mod.roc_histogram_plain(feats, labels, t),
+                       3, "roc plain")
+    library_ms = cuda_ms(lambda: roc_library(feats, labels, t), 3,
+                         "roc library torch.mm+bincount")
+    roc_hist_mod.roc_hist_launches = launches
+    pairs = t * n - t * (t + 1) // 2
+    ops = 2.0 * e * pairs
+    nbytes = 4.0 * (n * e + n) + 8.0 * 2 * roc_hist_mod.NUM_BINS
+    ops_ms, bytes_ms = ops / FP32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    record = {
+        "name": "roc_hist", "route": "cuda",
+        "source": "fedfr_tpu_torch/csrc/roc_hist.cu",
+        "replaces": "fedfr_tpu/ops/pallas_kernels.py:93",
+        "launches": None, "max_abs_err": err, "ms": timed["spread"],
+        "ms_clustered": timed["clustered"], "plain_ms": plain_ms,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": library_ms,
+    }
+    log("kernels", shape=f"roc {t}x{n}x{e}", pairs=pairs, ms=timed["spread"],
+        ms_clustered=timed["clustered"], plain_ms=plain_ms,
+        library_ms=library_ms, fp32_ops_bound_ms=ops_ms, hbm_bound_ms=bytes_ms,
+        tflops=ops / timed["spread"] / 1e9)
+    del feats, labels
+    torch.cuda.empty_cache()
+    return record
+
+
 # ---------------------------------------------------------------- phase 4
 
-def _identity_images(rng: np.random.Generator, n_ids: int, per_id: int,
-                     size: int, noise: int) -> np.ndarray:
-    """(n_ids * per_id, size, size, 3) u8: a smooth random pattern per
-    identity plus per-image noise."""
+def _patterns(rng: np.random.Generator, n_ids: int, size: int) -> np.ndarray:
+    """(n_ids, size, size, 3) float: a smooth random pattern per identity."""
     coarse = rng.integers(0, 256, size=(n_ids, 7, 7, 3)).astype(np.float32)
     rep = -(-size // 7)
-    base = np.repeat(np.repeat(coarse, rep, axis=1), rep, axis=2)[:, :size, :size]
+    return np.repeat(np.repeat(coarse, rep, axis=1), rep, axis=2)[:, :size, :size]
+
+
+def _noisy(rng: np.random.Generator, base: np.ndarray, per_id: int,
+           noise: int = 24) -> np.ndarray:
+    """(len(base) * per_id, ...) u8: each identity's pattern plus per-image
+    noise, identity by identity."""
     imgs = np.repeat(base, per_id, axis=0)
     imgs += rng.normal(0, noise, size=imgs.shape).astype(np.float32)
     return np.clip(imgs, 0, 255).astype(np.uint8)
 
 
+def _write(d: str, prefix: str, imgs, labels, num_classes, id_base=None) -> None:
+    os.makedirs(d, exist_ok=True)
+    write_split(os.path.join(d, f"{prefix}.idx"), os.path.join(d, f"{prefix}.rec"),
+                [codec.encode_raw(im) for im in imgs], list(labels),
+                num_classes=num_classes, id_base=id_base)
+
+
 def write_fl_split(root: str, n_clients: int, ids: int, imgs_per_id: int,
-                   pub_ids: int, pub_imgs: int, size: int, seed: int) -> None:
-    """split_train_i{N}c{K}/client_*/ + split_pretrain_6000/client_0000/,
-    written with the port's own ``write_split``."""
+                   pub_ids: int, pub_imgs: int, size: int, seed: int,
+                   veri_imgs: int) -> None:
+    """split_train_i{N}c{K}/client_*/ + split_pretrain_6000/client_0000/ +
+    local_veri_{N}/ (the ``test`` prefix, ``veri_imgs`` images per identity
+    drawn from the train split's identity patterns, global labels: client c
+    owns c*ids .. c*ids+ids-1), written with the port's own ``write_split``."""
     rng = np.random.default_rng(seed)
     split = os.path.join(root, "split_train_i%04dc%04d" % (n_clients * ids, n_clients))
-
-    def write(d, imgs, labels, num_classes, id_base=None):
-        os.makedirs(d, exist_ok=True)
-        write_split(os.path.join(d, "train.idx"), os.path.join(d, "train.rec"),
-                    [codec.encode_raw(im) for im in imgs], labels,
-                    num_classes=num_classes, id_base=id_base)
-
+    bases = []
     for c in range(n_clients):
-        imgs = _identity_images(rng, ids, imgs_per_id, size, noise=24)
-        write(os.path.join(split, "client_%04d" % c), imgs,
-              np.repeat(np.arange(ids), imgs_per_id).tolist(), ids, c * ids)
-    imgs = _identity_images(rng, pub_ids, pub_imgs, size, noise=24)
-    write(os.path.join(root, "split_pretrain_6000", "client_0000"), imgs,
-          np.repeat(np.arange(pub_ids), pub_imgs).tolist(), pub_ids)
+        bases.append(_patterns(rng, ids, size))
+        _write(os.path.join(split, "client_%04d" % c), "train",
+               _noisy(rng, bases[-1], imgs_per_id),
+               np.repeat(np.arange(ids), imgs_per_id), ids, c * ids)
+    _write(os.path.join(root, "split_pretrain_6000", "client_0000"), "train",
+           _noisy(rng, _patterns(rng, pub_ids, size), pub_imgs),
+           np.repeat(np.arange(pub_ids), pub_imgs), pub_ids)
+    veri = np.concatenate([_noisy(rng, b, veri_imgs) for b in bases])
+    _write(os.path.join(root, "local_veri_%d" % (n_clients * ids)), "test",
+           veri, np.repeat(np.arange(n_clients * ids), veri_imgs),
+           n_clients * ids)
 
 
-def round_config(root: str, n_clients: int, ids: int, device: str = "cuda",
-                 network: str = "sphnet", embedding: int = 512,
-                 image_size: int = 112, batch: int = 256,
-                 local_epochs: int = 2, rounds: int = 2) -> FedFRConfig:
-    cfg = FedFRConfig()
-    cfg.data.rec_root = root
-    cfg.data.num_clients = n_clients
-    cfg.data.num_ids = n_clients * ids
-    cfg.data.image_size = image_size
-    cfg.data.combined_batch_size = batch
-    cfg.data.num_workers = 6
-    cfg.model.network = network
-    cfg.model.embedding_size = embedding
-    cfg.model.bf16 = True
-    cfg.optim.lr = 0.001
-    cfg.fed.local_epochs = local_epochs
-    cfg.fed.total_rounds = rounds
-    cfg.fed.hn_threshold = THRESHOLD
-    # run.sh: --add_pretrained_data --combine_dataset --contrastive_bb
-    # --return_all --BCE_local --adaptive_local_epoch
-    cfg.fed.add_pretrained_data = cfg.fed.combine_dataset = True
-    cfg.fed.contrastive = cfg.fed.return_all = cfg.fed.bce_local = True
-    cfg.fed.adaptive_local_epoch = True
-    cfg.runtime.device = device
-    return cfg
+def write_bin(path: str, n_pairs: int, size: int, seed: int) -> None:
+    """A .bin pair set in the reference's pickle layout (bins, issame) with
+    FRAW payloads: even pairs show one identity twice, odd pairs two."""
+    rng = np.random.default_rng(seed)
+    bins, issame = [], []
+    for i in range(n_pairs):
+        base = _patterns(rng, 2, size)
+        same = i % 2 == 0
+        a = _noisy(rng, base[:1], 1)[0]
+        b = _noisy(rng, base[:1] if same else base[1:], 1)[0]
+        bins += [codec.encode_raw(a), codec.encode_raw(b)]
+        issame.append(same)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump((bins, issame), f, pickle.HIGHEST_PROTOCOL)
+
+
+def write_round_data(root: str, n_clients: int, ids: int, size: int) -> None:
+    write_fl_split(root, n_clients=n_clients, ids=ids, imgs_per_id=8,
+                   pub_ids=2000, pub_imgs=2, size=size, seed=0, veri_imgs=10)
+    write_bin(os.path.join(root, "val", "agedb_30.bin"), n_pairs=1200,
+              size=size, seed=1)
+
+
+def round_args(root: str, n_clients: int, ids: int, device: str = "cuda",
+               network: str = "sphnet", embedding: int = 512,
+               image_size: int = 112, batch: int = 256, local_epochs: int = 2,
+               rounds: int = 2, eval_batch: int = 512) -> list:
+    """The training CLI's argv for the smoke's rounds: run.sh's federated
+    flags, at the reference widths unless asked otherwise."""
+    return [
+        "--network", network, "--embedding_size", str(embedding),
+        "--image_size", str(image_size), "--com_batch_size", str(batch),
+        "--eval_batch_size", str(eval_batch), "--lr", "0.001",
+        "--num_client", str(n_clients), "--num_ids", str(n_clients * ids),
+        "--local_epoch", str(local_epochs), "--total_round", str(rounds),
+        "--HN_threshold", str(THRESHOLD), "--num_workers", "6",
+        "--rec_root", root, "--val_root", os.path.join(root, "val"),
+        "--local_rec", os.path.join(root, "local_veri_%d" % (n_clients * ids)),
+        "--output_dir", os.path.join(root, "run"), "--device", device,
+        "--add_pretrained_data", "--combine_dataset", "--contrastive_bb",
+        "--return_all", "--BCE_local", "--adaptive_local_epoch",
+    ]
 
 
 def device_breakdown(prof, wall_s: float, top: int = 8) -> None:
@@ -266,22 +459,59 @@ def device_breakdown(prof, wall_s: float, top: int = 8) -> None:
             calls=e.count, op=e.key[:60])
 
 
-def phase_round(cfg: FedFRConfig) -> dict:
-    """Server(cfg, data) and ``total_rounds`` rounds as train.py:200-207
-    runs them; returns the mining launches counted over the rounds."""
-    sync = torch.cuda.synchronize if cfg.runtime.device == "cuda" else (lambda: None)
+def check_local_logs(out_dir: str, candidates: list, rounds: int) -> None:
+    """Every local_log.txt line matches one of parse_log.py's two patterns,
+    and each candidate has its baseline plus one table per round."""
+    for cid in candidates:
+        path = os.path.join(out_dir, "clients", f"client_{cid}", "local_log.txt")
+        with open(path) as f:
+            lines = f.read().splitlines()
+        if len(lines) != 2 * (rounds + 1):
+            raise AssertionError(f"{path}: {len(lines)} lines, expected "
+                                 f"{2 * (rounds + 1)}")
+        for k, line in enumerate(lines):
+            if not LOCAL_LOG_PATTERNS[k % 2].match(line):
+                raise AssertionError(f"{path}:{k + 1} does not parse: {line!r}")
+        epochs = [int(LOCAL_LOG_PATTERNS[1].match(x).group(1)) for x in lines[1::2]]
+        if epochs[0] != -1:
+            raise AssertionError(f"{path}: first entry is epoch {epochs[0]}, not -1")
+        log("round", local_log=path, epochs=epochs, last=lines[-1])
+
+
+def check_exports(out_dir: str, rounds: int, candidates: list) -> None:
+    want = [f"backbone_{r}.pth" for r in range(rounds)] + ["backbone.pth"]
+    want += [os.path.join("clients", f"client_{c}", f)
+             for c in candidates for f in ("backbone.pth", "bce_module.pth")]
+    missing = [w for w in want if not os.path.exists(os.path.join(out_dir, w))]
+    if missing:
+        raise AssertionError(f"exports missing: {missing}")
+    sd = torch.load(os.path.join(out_dir, f"backbone_{rounds - 1}.pth"))
+    if not all(torch.isfinite(v).all() for v in sd.values() if v.is_floating_point()):
+        raise AssertionError("non-finite exported weights")
+    log("round", exports=sorted(os.path.relpath(p, out_dir) for p in
+                                glob.glob(os.path.join(out_dir, "**", "*.pth"),
+                                          recursive=True)))
+
+
+def phase_round(argv: list) -> dict:
+    """The training CLI's rounds (its setup, run_round and finish, as its
+    main runs them); returns the kernel launches counted over the rounds."""
+    args = train_cli.build_parser().parse_args(argv)
     t0 = time.perf_counter()
-    data = AllClientData(cfg)
-    server = Server(cfg, data)
+    run = train_cli.setup(args)
+    server, cfg = run.server, run.cfg
+    sync = torch.cuda.synchronize if cfg.runtime.device == "cuda" else (lambda: None)
     sync()
     log("round", setup_s=f"{time.perf_counter() - t0:.2f}",
-        public_images=len(data.public_dataset),
-        local_images=[len(d) for d in data.client_datasets])
+        public_images=len(server.data.public_dataset),
+        local_images=[len(d) for d in server.data.client_datasets],
+        veri_images=len(run.local_cb.dataset), bin_pairs=len(run.bin_cb.sets[0][1]),
+        candidates=server.local_candidates)
     before = {k: v.detach().clone() for k, v in server.global_net.state_dict().items()}
 
     max_sim_mod.max_sim_launches = 0
-    while server.global_round < cfg.fed.total_rounds:
-        server.current_client_list = server.sample_clients()
+    roc_hist_mod.roc_hist_launches = 0
+    while not run.done:
         last = server.global_round == cfg.fed.total_rounds - 1
         profiling = last and cfg.runtime.device == "cuda"
         prof = (torch.profiler.profile(activities=[
@@ -289,21 +519,29 @@ def phase_round(cfg: FedFRConfig) -> dict:
             if profiling else contextlib.nullcontext())
         t = time.perf_counter()
         with prof:
-            stats = server.train_round()
+            rec = train_cli.run_round(run)
             sync()
         seconds = time.perf_counter() - t
         if profiling:
             device_breakdown(prof, seconds)
-        clients = [server.clients[c] for c in server.current_client_list]
-        log("round", round=server.global_round, seconds=f"{seconds:.2f}",
-            local_epochs=server.local_epoch, avg_loss=stats["avg_loss"],
+        clients = [server.clients[c] for c in rec["clients"]]
+        log("round", round=rec["round"], seconds=f"{seconds:.2f}",
+            train_s=f"{rec['train_round_s'] - rec['local_eval_s']:.3f}",
+            eval_s=f"{rec['local_eval_s'] + rec['bin_eval_s']:.3f}",
+            local_eval_s=f"{rec['local_eval_s']:.3f}",
+            bin_eval_s=f"{rec['bin_eval_s']:.3f}", local_epochs=server.local_epoch,
+            avg_loss=rec["avg_loss"], acc=rec["acc"],
             losses=[c.last_loss for c in clients],
             mined=[c.mined for c in clients],
             dataset_sizes=[c.dataset_size for c in clients])
         if not all(math.isfinite(c.last_loss) for c in clients):
             raise AssertionError("non-finite client loss")
-        server.advance_round()
-    launches = max_sim_mod.max_sim_launches
+        if not (rec["acc"] and all(math.isfinite(a) and 0.0 <= a <= 1.0
+                                   for a in rec["acc"])):
+            raise AssertionError(f"bin accuracy {rec['acc']}")
+    launches = {"max_sim": max_sim_mod.max_sim_launches,
+                "roc_hist": roc_hist_mod.roc_hist_launches}
+    train_cli.finish(run)
 
     after = server.global_net.state_dict()
     changed = max(float((after[k].float() - v.float()).abs().max())
@@ -312,28 +550,33 @@ def phase_round(cfg: FedFRConfig) -> dict:
                  if v.is_floating_point())
     if not (finite and changed > 0):
         raise AssertionError(f"global model finite={finite} max change={changed}")
-    expected = cfg.data.num_clients * cfg.fed.total_rounds
-    log("round", max_sim_launches=launches, expected=expected,
-        global_max_change=changed)
+    rounds = cfg.fed.total_rounds
+    expected = {"max_sim": cfg.data.num_clients * rounds,
+                "roc_hist": len(server.local_candidates) * (rounds + 1)}
+    log("round", launches=launches, expected=expected, global_max_change=changed)
     if cfg.runtime.device == "cuda" and launches != expected:
-        raise AssertionError(f"mining kernel launched {launches} times, "
-                             f"expected clients x rounds = {expected}")
-    return {"max_sim": launches}
+        raise AssertionError(f"kernel launches {launches}, expected {expected} "
+                             f"(mining: clients x rounds; ROC: candidates x "
+                             f"(rounds + the epoch -1 baseline))")
+    check_local_logs(cfg.runtime.output_dir, server.local_candidates, rounds)
+    check_exports(cfg.runtime.output_dir, rounds, server.local_candidates)
+    return launches
 
 
 def main() -> None:
     smi = phase_device()
     phase_build()
-    record = phase_kernels(420_671, 6_500, 512)
+    mining = phase_mining(420_671, 6_500, 512)
+    roc = phase_roc(160_000, 4_000, 512)
     with tempfile.TemporaryDirectory(prefix="fedfr_smoke_") as root:
         t0 = time.perf_counter()
-        write_fl_split(root, n_clients=2, ids=100, imgs_per_id=8,
-                       pub_ids=2000, pub_imgs=2, size=112, seed=0)
+        write_round_data(root, n_clients=2, ids=100, size=112)
         log("round", data_written_s=f"{time.perf_counter() - t0:.2f}")
-        launches = phase_round(round_config(root, n_clients=2, ids=100))
-    record["launches"] = launches["max_sim"]
+        launches = phase_round(round_args(root, n_clients=2, ids=100))
+    mining["launches"] = launches["max_sim"]
+    roc["launches"] = launches["roc_hist"]
     print(smi, flush=True)
-    print(json.dumps({"kernels": [record]}), flush=True)
+    print(json.dumps({"kernels": [mining, roc]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

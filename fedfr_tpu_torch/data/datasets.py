@@ -10,7 +10,7 @@ The port's copy of ``fedfr_tpu/data/datasets.py`` for rec roots:
 * ``BatchLoader`` — the same seeded numpy shuffle as the JAX package, so a
   client sees its batches in the same order on both sides.
 * ``AllClientData`` — the client shards + public train set
-  (reference dataset.py:73-142).
+  (reference dataset.py:73-142), and the local verification split.
 
 Decoding runs on a host thread pool; augmentation (random hflip) and
 normalization run on the device inside the train step, so the host only moves
@@ -188,3 +188,8 @@ class AllClientData:
 
     def client(self, cid: int) -> FaceRecordDataset:
         return self.client_datasets[cid]
+
+    def veri_dataset(self, veri_dir: str) -> FaceRecordDataset:
+        """The local-verification split (``local_veri_4000``): the ``test``
+        rec at ``veri_dir``, labelled with global identity IDs."""
+        return FaceRecordDataset(veri_dir, prefix="test")

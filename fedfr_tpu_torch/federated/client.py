@@ -71,6 +71,9 @@ class Client:
         self.device = resolve_device(cfg.runtime.device if device is None else device)
         self.num_classes = int(dataset.num_classes or 0)
         self.dataset_size = len(dataset)
+        # the client's global identity range in the local verification set
+        self.id_base = int(dataset.id_base or cid * self.num_classes)
+        self.target_ids = list(range(self.id_base, self.id_base + self.num_classes))
         self.flip_fn = flip_fn
         self.last_net = last_net
         if cfg.fed.contrastive and last_net is None:

@@ -25,20 +25,28 @@ from .state import normalize_images
 def embed_dataset(model: nn.Module, dataset, batch_size: int = 512,
                   flip_test: bool = False, l2norm: bool = True,
                   device: Optional[Union[str, torch.device]] = "cuda",
-                  num_workers: int = 6, prefetch: int = 2
+                  num_workers: int = 6, prefetch: int = 2,
+                  converter: Optional[nn.Module] = None
                   ) -> Tuple[torch.Tensor, np.ndarray]:
     """Embed every active item of a record dataset in dataset order ->
     ((N, E) float32 features on ``device``, (N,) int64 labels).
 
     ``model`` must already live on ``device``; it runs in eval mode.
     ``flip_test`` sums the embeddings of the image and its horizontal
-    mirror (reference local_all.py:209-215).
+    mirror (reference local_all.py:209-215).  ``converter`` (a BCE module's
+    personalized transformation layer) maps the backbone's features in
+    fp32 before anything else, as the JAX package's embed with
+    ``bce_params`` does (reference local_all.py:354-359).
     """
     device = resolve_device(device)
     param = next(model.parameters())
     if param.device.type != device.type:
         raise ValueError(f"model is on {param.device}, embedding asked on {device}")
     model.eval()
+
+    def embed(u8):
+        f = model(normalize_images(u8)).float()
+        return f if converter is None else converter(f)
     n = len(dataset)
     chunks = []
     labels_out = np.empty(n, dtype=np.int64)
@@ -51,10 +59,10 @@ def embed_dataset(model: nn.Module, dataset, batch_size: int = 512,
                    for imgs, labels, valid in loader.epoch())
         for imgs, labels, valid in prefetched(batches, prefetch):
             nvalid = int(valid.sum())
-            f = model(normalize_images(imgs))
+            f = embed(imgs)
             if flip_test:
-                f = f + model(normalize_images(imgs.flip(2)))
-            chunks.append(f[:nvalid].float())
+                f = f + embed(imgs.flip(2))
+            chunks.append(f[:nvalid])
             labels_out[pos:pos + nvalid] = labels[:nvalid]
             pos += nvalid
     feats = torch.cat(chunks)

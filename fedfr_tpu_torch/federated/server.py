@@ -6,17 +6,25 @@ the sampled clients each round, aggregates with dataset-size-weighted FedAvg
 over every state entry (BN statistics included) and averages the shared
 global FC.
 
+Evaluation is injected, as in the JAX package: ``eval_callback(server)``
+is what ``test()`` runs after a round (the ``.bin`` verification), and
+``local_eval_callback(server, client, epoch=None, variables=None)`` runs
+after each candidate client's local run, plus once per candidate before
+its first run with ``epoch=-1`` and the global model's state (the
+pretrain baseline).  ``fedfr_tpu_torch/train.py`` builds both.
+
 Not ported yet (ROADMAP queue A): the client-parallel and lockstep rounds,
-``Server.test`` and the local eval, SpreadOut, FC-row mining, the cached
-contrastive step, the plain (no public data) objective, pretrained weights
-from ``pretrained_root``, and checkpoints.  The config switches of those
-paths raise here instead of being ignored.
+SpreadOut, FC-row mining, the cached contrastive step, the plain (no public
+data) objective, pretrained weights from ``pretrained_root``, and the
+resume state.  The config switches of those paths raise here instead of
+being ignored.
 """
 
 from __future__ import annotations
 
 import copy
 import logging
+import os
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -32,6 +40,10 @@ from .embed import class_mean_features, embed_dataset
 from .trainer import make_branch_train_step
 
 logger = logging.getLogger("fedfr_tpu_torch.server")
+
+
+def _host_state(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().cpu() for k, v in state.items()}
 
 
 def _check_ported(cfg: FedFRConfig) -> None:
@@ -54,11 +66,13 @@ def _check_ported(cfg: FedFRConfig) -> None:
 
 class Server:
     def __init__(self, cfg: FedFRConfig, data: AllClientData,
+                 eval_callback: Optional[Callable] = None,
                  local_eval_callback: Optional[Callable] = None):
         _check_ported(cfg)
         self.cfg = cfg
         self.data = data
         self.device = resolve_device(cfg.runtime.device)
+        self.eval_callback = eval_callback
         self.local_eval_callback = local_eval_callback
         self.rng = np.random.default_rng(cfg.runtime.seed)
 
@@ -185,8 +199,10 @@ class Server:
                         pos + 1, len(self.current_client_list), cid)
             if (self.local_eval_callback is not None and self.global_round == 0
                     and cid in self.local_candidates):
-                # pretrain baseline entry, epoch -1 (client.py:331-333)
-                self.local_eval_callback(self, client, epoch=-1)
+                # pretrain baseline entry, epoch -1 (client.py:331-333): the
+                # client has no trained state yet, so the global model
+                self.local_eval_callback(self, client, epoch=-1,
+                                         variables=self.global_net.state_dict())
             stats = client.train_with_public_data(
                 self.global_net, self.data.public_dataset, self.pretrained_fc,
                 public_feats, self.pretrained_labels, self.local_epoch,
@@ -215,3 +231,34 @@ class Server:
         self.global_epoch += self.local_epoch
         self.global_round += 1
         self.current_client_list = []
+
+    # --------------------------------------------------------- checkpoints
+
+    def save_round_checkpoint(self, output_dir: str) -> str:
+        """The round's global backbone as ``backbone_<round>.pth``: a
+        ``torch.save`` of its state_dict (reference key layout), on the CPU."""
+        os.makedirs(output_dir, exist_ok=True)
+        path = os.path.join(output_dir, f"backbone_{self.global_round}.pth")
+        torch.save(_host_state(self.global_net.state_dict()), path)
+        return path
+
+    def save_client_checkpoints(self, output_dir: str) -> None:
+        """``clients/client_<c>/backbone.pth`` and ``bce_module.pth`` of every
+        client trained in this process (reference client.py:484-495)."""
+        for c in self.clients:
+            if c.trained_backbone is None:
+                continue
+            cdir = os.path.join(output_dir, "clients", f"client_{c.cid}")
+            os.makedirs(cdir, exist_ok=True)
+            torch.save(_host_state(c.trained_backbone),
+                       os.path.join(cdir, "backbone.pth"))
+            if c.bce_state is not None:
+                torch.save(_host_state(c.bce_state),
+                           os.path.join(cdir, "bce_module.pth"))
+
+    def test(self) -> Optional[Dict]:
+        """The round's evaluation: whatever ``eval_callback`` returns, or
+        None without one."""
+        if self.eval_callback is not None:
+            return self.eval_callback(self)
+        return None

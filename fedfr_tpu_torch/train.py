@@ -1,0 +1,387 @@
+"""FedFR federated training CLI of the PyTorch port.
+
+The counterpart of the repository's ``train.py``: the same flags, the same
+config, and the same round loop (sample, ``train_round``, ``test``, exports,
+``advance_round``), with the ``.bin`` verification and the per-client 1:1
+eval attached as that CLI attaches them.  run.sh-equivalent:
+
+    python -m fedfr_tpu_torch.train --network sphnet \\
+        --output_dir ./ckpt/FedFR --loss CosFace --batch_size 64 \\
+        --num_client 40 --client_sampled_ratio 1.0 --lr 0.001 \\
+        --total_round 20 --local_epoch 10 --rec_root DATA --val_root VAL \\
+        --local_rec DATA/local_veri_4000 --add_pretrained_data \\
+        --combine_dataset --contrastive_bb --return_all --BCE_local \\
+        --adaptive_local_epoch
+
+It runs on the GPU (``--device cuda``, the default, raising without one);
+``--device cpu`` runs it on the CPU with the kernels' plain versions.
+
+Exports are PyTorch's own: ``backbone_<round>.pth`` (at the
+``--round_ckpt_every`` cadence and at the final round), ``backbone.pth``
+(the best round on the last ``.bin`` target) and
+``clients/client_<c>/{backbone,bce_module}.pth`` (at the
+``--client_ckpt_every`` cadence, and once at the end if the cadence missed
+the final round), each a ``torch.save`` of a state_dict in the reference
+key layout.  The resume state is not written: ``--resume`` and the flags
+that shape it raise, as do the other flags of paths not ported yet, each
+naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import logging
+import os
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import torch
+
+from .config import FedFRConfig
+from .data.datasets import AllClientData
+from .evalsuite.local_eval import LocalVerificationCallback
+from .evalsuite.verification import BinVerificationCallback
+from .federated.server import Server
+from .utils.device import resolve_device
+from .utils.logging import init_logging
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """Every flag of the repository's train.py, plus ``--device``."""
+    p = argparse.ArgumentParser(description="FedFR training, PyTorch port")
+    p.add_argument("--network", type=str, default="sphnet")
+    p.add_argument("--loss", type=str, default="CosFace")
+    p.add_argument("--output_dir", default="./ckpt/FL_FedFR")
+    p.add_argument("--batch_size", default=64, type=int)
+    p.add_argument("--com_batch_size", default=256, type=int)
+    p.add_argument("--public_batch_size", default=512, type=int)
+    p.add_argument("--eval_batch_size", default=512, type=int)
+    p.add_argument("--local_epoch", default=1, type=int)
+    p.add_argument("--total_round", default=16, type=int)
+    p.add_argument("--num_client", default=10, type=int)
+    p.add_argument("--num_ids", default=4000, type=int)
+    p.add_argument("--client_sampled_ratio", default=1.0, type=float)
+    p.add_argument("--pretrained_root", default="",
+                   help="not ported: raises (ROADMAP queue A item 10)")
+    p.add_argument("--lr", type=float, default=0.1)
+    p.add_argument("--aggr_alg", default="FedAvg")
+    p.add_argument("--spreadout", action="store_true",
+                   help="not ported: raises (ROADMAP queue A item 7)")
+    p.add_argument("--init_fc", action="store_true")
+    p.add_argument("--add_pretrained_data", action="store_true",
+                   help="required: the plain objective is not ported "
+                        "(ROADMAP queue A item 5)")
+    p.add_argument("--contrastive_bb", action="store_true")
+    p.add_argument("--cache_contrastive", action="store_true",
+                   help="not ported: raises (ROADMAP queue A item 6)")
+    p.add_argument("--lockstep", type=int, default=1,
+                   help="values above 1 are not ported: raise (ROADMAP "
+                        "queue A item 13)")
+    p.add_argument("--return_all", action="store_true")
+    p.add_argument("--combine_dataset", action="store_true")
+    p.add_argument("--BCE_local", action="store_true")
+    p.add_argument("--BCE_detach", action="store_true")
+    p.add_argument("--adaptive_local_epoch", action="store_true")
+    p.add_argument("--reweight_cosface", action="store_true")
+    p.add_argument("--hn_strategy", default="feature", choices=["feature", "fc"],
+                   help="hard-negative mining: image features, or FC rows "
+                        "('fc' is not ported: raises, ROADMAP queue A item 7)")
+    p.add_argument("--HN_threshold", default=0.4, type=float,
+                   help="feature-mining cosine threshold (config.py:28)")
+    p.add_argument("--HN_cap", default=0, type=int,
+                   help="cap the mined set at the N hardest public images "
+                        "(0 = uncapped reference semantics)")
+    p.add_argument("--rec_root", default="", help="dataset root")
+    p.add_argument("--val_root", default="", help=".bin verification dir")
+    p.add_argument("--local_rec", default="", help="local_veri_4000 dir")
+    p.add_argument("--val_targets", default="agedb_30")
+    p.add_argument("--num_workers", default=6, type=int)
+    p.add_argument("--seed", default=100, type=int)
+    p.add_argument("--embedding_size", default=512, type=int)
+    p.add_argument("--image_size", default=112, type=int)
+    p.add_argument("--resume", action="store_true",
+                   help="not ported: raises (ROADMAP queue A item 12)")
+    p.add_argument("--profile", action="store_true",
+                   help="not ported: raises (ROADMAP queue A item 14)")
+    p.add_argument("--scan_blocks", action="store_true",
+                   help="no effect here: a JAX compile option; the port's "
+                        "modules have one layout")
+    p.add_argument("--remat", action="store_true",
+                   help="not ported: raises (ROADMAP queue A item 13)")
+    p.add_argument("--freeze_bn", action="store_true",
+                   help="not ported: raises (ROADMAP queue A item 4)")
+    p.add_argument("--dropout", type=float, default=0.0,
+                   help="backbone dropout before the embedding fc (iresnet "
+                        "only, as in the JAX package)")
+    p.add_argument("--converter_layer", type=int, default=1,
+                   help="BCE transformation layer: 1=linear; the "
+                        "BottleBlock is not ported (ROADMAP queue A item 4)")
+    p.add_argument("--device_cache", action="store_true",
+                   help="no effect here: the port keeps every state on "
+                        "the device")
+    p.add_argument("--client_ckpt_every", type=int, default=1,
+                   help="save per-client artifacts every N rounds (0 = never)")
+    p.add_argument("--round_ckpt_every", type=int, default=1,
+                   help="save backbone_%%d.pth every N rounds (0 = never; "
+                        "the final round always exports)")
+    p.add_argument("--round_ckpt_keep", type=int, default=0,
+                   help="values above 0 are not ported: raise (ROADMAP "
+                        "queue A item 12)")
+    p.add_argument("--round_ckpt_async", action="store_true",
+                   help="not ported: raises (ROADMAP queue A item 12)")
+    p.add_argument("--round_ckpt_bg_fetch", action="store_true",
+                   help="not ported: raises (ROADMAP queue A item 12)")
+    # dead reference flags, accepted as no-ops so verbatim reference
+    # commands run (reference train.py:109-123)
+    p.add_argument("--fedface", action="store_true", help="no-op (reference dead flag)")
+    p.add_argument("--BCE_tune", action="store_true", help="no-op (reference dead flag)")
+    p.add_argument("--save_fc_iter", type=int, default=40,
+                   help="no-op (reference dead flag)")
+    p.add_argument("--lr_step", default="1000", help="no-op (reference dead flag)")
+    p.add_argument("--local_rank", type=int, default=0,
+                   help="no-op (reference hardcodes rank 0, train.py:42)")
+    p.add_argument("--data_ratio", type=float, default=0.5,
+                   help="no-op (reference dead flag, never read)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="torch device of the run (cpu: the kernels' plain "
+                        "versions)")
+    return p
+
+
+def check_flags(args) -> None:
+    """Raise on every flag whose path the port does not have yet."""
+    unported = {
+        "--resume (the resume state, ROADMAP queue A item 12)": args.resume,
+        "--round_ckpt_async (ROADMAP queue A item 12)": args.round_ckpt_async,
+        "--round_ckpt_bg_fetch (ROADMAP queue A item 12)": args.round_ckpt_bg_fetch,
+        "--round_ckpt_keep > 0 (ROADMAP queue A item 12)": args.round_ckpt_keep > 0,
+        "--lockstep > 1 (ROADMAP queue A item 13)": args.lockstep > 1,
+        "--remat (ROADMAP queue A item 13)": args.remat,
+        "--profile (ROADMAP queue A item 14)": args.profile,
+    }
+    bad = [name for name, on in unported.items() if on]
+    if bad:
+        raise NotImplementedError(
+            "not ported to the PyTorch package yet: " + ", ".join(bad))
+
+
+def build_config(args) -> FedFRConfig:
+    cfg = FedFRConfig()
+    cfg.data.rec_root = args.rec_root
+    cfg.data.val_root = args.val_root
+    cfg.data.local_veri_dir = args.local_rec
+    cfg.data.num_clients = args.num_client
+    cfg.data.num_ids = args.num_ids
+    cfg.data.batch_size = args.batch_size
+    cfg.data.combined_batch_size = args.com_batch_size
+    cfg.data.public_batch_size = args.public_batch_size
+    cfg.data.eval_batch_size = args.eval_batch_size
+    cfg.data.num_workers = args.num_workers
+    cfg.model.network = args.network
+    cfg.loss.loss = args.loss
+    cfg.optim.lr = args.lr
+    cfg.fed.total_rounds = args.total_round
+    cfg.fed.local_epochs = args.local_epoch
+    cfg.fed.client_sampled_ratio = args.client_sampled_ratio
+    cfg.fed.spreadout = args.spreadout
+    cfg.fed.init_fc = args.init_fc
+    cfg.fed.add_pretrained_data = args.add_pretrained_data
+    cfg.fed.combine_dataset = args.combine_dataset
+    cfg.fed.contrastive = args.contrastive_bb
+    cfg.fed.return_all = args.return_all
+    cfg.fed.bce_local = args.BCE_local
+    cfg.fed.bce_detach = args.BCE_detach
+    cfg.fed.adaptive_local_epoch = args.adaptive_local_epoch
+    cfg.fed.reweight_cosface = args.reweight_cosface
+    cfg.fed.hn_strategy = args.hn_strategy
+    cfg.fed.hn_threshold = args.HN_threshold
+    cfg.fed.hn_cap = args.HN_cap
+    cfg.fed.aggr_alg = args.aggr_alg
+    cfg.runtime.output_dir = args.output_dir
+    cfg.runtime.pretrained_root = args.pretrained_root
+    cfg.runtime.seed = args.seed
+    cfg.runtime.device = args.device
+    cfg.model.embedding_size = args.embedding_size
+    cfg.model.scan_blocks = args.scan_blocks
+    cfg.data.image_size = args.image_size
+    cfg.model.freeze_bn = args.freeze_bn
+    cfg.model.dropout = args.dropout
+    cfg.model.remat_blocks = args.remat
+    cfg.model.converter_layers = args.converter_layer
+    cfg.runtime.device_cache = args.device_cache
+    cfg.runtime.client_ckpt_every = args.client_ckpt_every
+    cfg.runtime.round_ckpt_every = args.round_ckpt_every
+    cfg.runtime.round_ckpt_keep = args.round_ckpt_keep
+    cfg.runtime.round_ckpt_async = args.round_ckpt_async
+    cfg.runtime.round_ckpt_bg_fetch = args.round_ckpt_bg_fetch
+    cfg.fed.cache_contrastive = args.cache_contrastive
+    cfg.fed.lockstep = max(1, args.lockstep or 1)
+    if args.val_targets:
+        cfg.runtime.val_targets = args.val_targets.split(",")
+    return cfg
+
+
+def attach_callbacks(cfg: FedFRConfig, server: Server, data: AllClientData,
+                     logger: logging.Logger, spent: Dict[str, float]):
+    """Build the ``.bin`` and local 1:1 callbacks and hook them into
+    ``server`` as train.py:105-159 does.  Both evaluate in one eval module
+    of their own (a copy of the global model and of the BCE module), into
+    which they load the state to be evaluated; the modules the clients train
+    in are never touched.  The local eval's seconds add up in
+    ``spent["local_eval"]``.  Returns (bin callback or None, local callback
+    or None)."""
+    eval_net = copy.deepcopy(server.global_net)
+    eval_bce = copy.deepcopy(server.bce_module).eval().requires_grad_(False)
+    sync = torch.cuda.synchronize if server.device.type == "cuda" else (lambda: None)
+
+    bin_cb = None
+    if cfg.data.val_root:
+        bin_cb = BinVerificationCallback(
+            eval_net, cfg.runtime.val_targets, cfg.data.val_root,
+            batch_size=cfg.data.eval_batch_size, logger=logger,
+            image_size=(cfg.data.image_size, cfg.data.image_size),
+            device=server.device)
+
+    local_cb = None
+    if cfg.data.local_veri_dir and os.path.exists(cfg.data.local_veri_dir):
+        local_cb = LocalVerificationCallback(
+            eval_net, eval_bce, data.veri_dataset(cfg.data.local_veri_dir),
+            cfg.runtime.output_dir, batch_size=cfg.data.eval_batch_size,
+            device=server.device, num_workers=cfg.data.num_workers,
+            prefetch=cfg.data.prefetch)
+
+    def eval_callback(server):
+        if bin_cb is None:
+            return None
+        accs = bin_cb(server.global_round, server.global_net.state_dict())
+        if bin_cb.is_best(server.global_round):
+            torch.save({k: v.detach().cpu() for k, v in
+                        server.global_net.state_dict().items()},
+                       os.path.join(cfg.runtime.output_dir, "backbone.pth"))
+            logger.info("Save server model, round %d", server.global_round)
+        return {"acc": accs}
+
+    def local_eval_callback(server, client, epoch=None, variables=None):
+        if local_cb is None:
+            return
+        if variables is None:
+            variables = client.trained_backbone
+        if variables is None:
+            return
+        if epoch is None:
+            # last local-epoch index, matching the reference's log numbering
+            # (client.py:483 passes the loop-final epoch)
+            epoch = server.global_epoch + server.local_epoch - 1
+        bce_state = (client.bce_state if client.bce_state is not None
+                     and epoch != -1 else None)
+        t0 = time.perf_counter()
+        local_cb.veri_test(variables, epoch, client.target_ids, client.cid,
+                           bce_state)
+        sync()
+        spent["local_eval"] += time.perf_counter() - t0
+
+    server.eval_callback = eval_callback
+    server.local_eval_callback = local_eval_callback
+    return bin_cb, local_cb
+
+
+@dataclass
+class Training:
+    """One CLI run: what ``setup`` builds and ``run_round`` advances."""
+
+    cfg: FedFRConfig
+    logger: logging.Logger
+    server: Server
+    bin_cb: Optional[BinVerificationCallback]
+    local_cb: Optional[LocalVerificationCallback]
+    spent: Dict[str, float]  # seconds by phase, filled by the callbacks
+
+    @property
+    def done(self) -> bool:
+        return self.server.global_round >= self.cfg.fed.total_rounds
+
+
+def setup(args) -> Training:
+    check_flags(args)
+    cfg = build_config(args)
+    resolve_device(cfg.runtime.device)  # no GPU and no --device cpu: raise now
+    os.makedirs(cfg.runtime.output_dir, exist_ok=True)
+    logger = init_logging(cfg.runtime.output_dir)
+    logger.info("config: %s", cfg.to_json())
+    logger.info("the resume state is not written by the PyTorch package "
+                "(ROADMAP queue A item 12): a stopped run starts again from "
+                "round 0")
+    if args.scan_blocks or args.device_cache:
+        logger.info("--scan_blocks and --device_cache have no effect here: "
+                    "the port's modules have one layout and its states stay "
+                    "on the device")
+    data = AllClientData(cfg)
+    server = Server(cfg, data)
+    spent = {"local_eval": 0.0}
+    bin_cb, local_cb = attach_callbacks(cfg, server, data, logger, spent)
+    logger.info("local veri candidates %s", server.local_candidates)
+    logger.info("=== Start Federated learning ===")
+    return Training(cfg, logger, server, bin_cb, local_cb, spent)
+
+
+def run_round(t: Training) -> Dict:
+    """One round of train.py:199-227: sample, train (with the candidates'
+    local eval), test, export, advance.  Returns the round's numbers."""
+    cfg, server, logger = t.cfg, t.server, t.logger
+    sync = torch.cuda.synchronize if server.device.type == "cuda" else (lambda: None)
+    rnd = server.global_round
+    server.current_client_list = clients = server.sample_clients()
+    logger.info("====== Round %d ======", rnd)
+    t.spent["local_eval"] = 0.0
+    t0 = time.perf_counter()
+    stats = server.train_round()
+    sync()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    result = server.test()
+    sync()
+    bin_s = time.perf_counter() - t0
+
+    out = cfg.runtime.output_dir
+    rce = cfg.runtime.round_ckpt_every
+    # the final round always exports, whatever the cadence (the
+    # post-training evals read it)
+    if (rce and rnd % rce == 0) or rnd == cfg.fed.total_rounds - 1:
+        server.save_round_checkpoint(out)
+    cce = cfg.runtime.client_ckpt_every
+    if cce and rnd % cce == 0:
+        server.save_client_checkpoints(out)
+    server.advance_round()
+    local_s = t.spent["local_eval"]
+    logger.info("round %d: train_round %.3f s (of which local eval %.3f s), "
+                "bin eval %.3f s", rnd, train_s, local_s, bin_s)
+    return {"round": rnd, "clients": clients, "avg_loss": stats["avg_loss"],
+            "train_round_s": train_s, "local_eval_s": local_s,
+            "bin_eval_s": bin_s, "acc": result["acc"] if result else None}
+
+
+def finish(t: Training) -> None:
+    """After the last round: the per-client exports, if the cadence did not
+    capture the final round (the post-training personalized evals need every
+    client's backbone and converter)."""
+    cfg, server = t.cfg, t.server
+    cce = cfg.runtime.client_ckpt_every
+    if t.done and not (cce and (cfg.fed.total_rounds - 1) % cce == 0):
+        t.logger.info("saving final per-client checkpoints")
+        server.save_client_checkpoints(cfg.runtime.output_dir)
+    t.logger.info("training done")
+
+
+def main(args) -> List[Dict]:
+    t = setup(args)
+    history = []
+    while not t.done:
+        history.append(run_round(t))
+    finish(t)
+    return history
+
+
+if __name__ == "__main__":
+    main(build_parser().parse_args())

@@ -1,0 +1,162 @@
+"""The port's training CLI (``python -m fedfr_tpu_torch.train``) on the CPU.
+
+* its parser accepts every flag of the repository's train.py (read by AST);
+* ``build_config`` gives the JAX CLI's config from the same arguments;
+* flags of paths not ported raise ``NotImplementedError`` naming their
+  ROADMAP item, and the CLI and the eval callbacks default to ``cuda`` and
+  raise without it;
+* two toy rounds through ``main`` on data written by chip_smoke.py's own
+  writers: local_log.txt as parse_log.py reads it (the epoch -1 baseline,
+  then one entry per round), the .bin accuracy, training.log and the .pth
+  exports; and chip_smoke.py's round phase, rehearsed on the CPU.
+"""
+
+import ast
+import dataclasses
+import os
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+import parse_log
+import train as jax_train
+from fedfr_tpu_torch import train as train_cli
+from fedfr_tpu_torch.evalsuite import local_eval as tle
+from fedfr_tpu_torch.evalsuite import verification as tver
+from fedfr_tpu_torch.models import ToyNet
+
+REPO = Path(__file__).resolve().parent.parent
+CLIENTS, IDS, IMG = 2, 3, 16
+
+
+def _root_train_flags():
+    tree = ast.parse((REPO / "train.py").read_text())
+    flags = []
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "add_argument"):
+            flags += [a.value for a in node.args
+                      if isinstance(a, ast.Constant) and str(a.value).startswith("--")]
+    return flags
+
+
+def test_parser_accepts_every_flag_of_train_py():
+    flags = _root_train_flags()
+    assert len(flags) >= 50 and "--BCE_local" in flags and "--round_ckpt_bg_fetch" in flags
+    accepted = train_cli.build_parser()._option_string_actions
+    assert [f for f in flags if f not in accepted] == []
+
+
+def test_build_config_matches_jax_cli():
+    argv = ["--network", "toy", "--num_client", "4", "--lr", "0.01", "--BCE_local",
+            "--contrastive_bb", "--HN_cap", "7", "--val_targets", "lfw,agedb_30",
+            "--client_ckpt_every", "2", "--converter_layer", "1", "--seed", "5"]
+    args = train_cli.build_parser().parse_args(argv)
+    got = dataclasses.asdict(train_cli.build_config(args))
+    want = dataclasses.asdict(jax_train.build_config(args))
+    assert got["runtime"].pop("device") == "cuda"
+    assert got == want
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--resume"], "item 12"),
+    (["--round_ckpt_async"], "item 12"),
+    (["--round_ckpt_bg_fetch"], "item 12"),
+    (["--round_ckpt_keep", "2"], "item 12"),
+    (["--lockstep", "2"], "item 13"),
+    (["--remat"], "item 13"),
+    (["--profile"], "item 14"),
+])
+def test_unported_flags_raise(argv, item, tmp_path):
+    args = train_cli.build_parser().parse_args(
+        argv + ["--output_dir", str(tmp_path), "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match=item):
+        train_cli.main(args)
+
+
+def test_cli_and_callbacks_raise_without_cuda(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = train_cli.build_parser().parse_args(["--output_dir", str(tmp_path)])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_cli.main(args)
+    data = np.zeros((4, IMG, IMG, 3), np.uint8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tver.test_bin(ToyNet(8), data, np.array([True, False]), batch_size=4)
+    cb = tle.LocalVerificationCallback(ToyNet(8), None, veri_dataset=None,
+                                       output_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cb.veri_test(ToyNet(8).state_dict(), 0, [0, 1], 0)
+
+
+@pytest.fixture(scope="module")
+def smoke_root(tmp_path_factory):
+    """chip_smoke.py's data at toy size: 2 clients x 3 IDs, a 6-ID public
+    set, a local_veri split of 6 images per ID and a 40-pair .bin."""
+    root = str(tmp_path_factory.mktemp("torch_cli"))
+    chip_smoke.write_fl_split(root, CLIENTS, IDS, imgs_per_id=8, pub_ids=6,
+                              pub_imgs=5, size=IMG, seed=0, veri_imgs=6)
+    chip_smoke.write_bin(os.path.join(root, "val", "agedb_30.bin"), n_pairs=40,
+                         size=IMG, seed=1)
+    return root
+
+
+def _argv(root, out):
+    argv = chip_smoke.round_args(root, CLIENTS, IDS, device="cpu", network="toy",
+                                 embedding=16, image_size=IMG, batch=8,
+                                 local_epochs=1, eval_batch=16)
+    argv[argv.index("--output_dir") + 1] = out
+    return argv + ["--num_workers", "2", "--lr", "0.01"]
+
+
+def test_main_runs_two_rounds_with_eval(smoke_root, tmp_path):
+    out = str(tmp_path / "run")
+    history = train_cli.main(train_cli.build_parser().parse_args(_argv(smoke_root, out)))
+    assert [h["round"] for h in history] == [0, 1]
+    for h in history:
+        assert h["clients"] == [0, 1]
+        assert np.isfinite(h["avg_loss"]) and len(h["acc"]) == 1
+        assert 0.0 <= h["acc"][0] <= 1.0
+        assert h["local_eval_s"] > 0 and h["bin_eval_s"] > 0
+    for cid in (0, 1):
+        acc = parse_log.parse(os.path.join(out, "clients", f"client_{cid}",
+                                           "local_log.txt"))
+        assert list(acc) == [cid * IDS]
+        assert [e for e, _ in acc[cid * IDS]] == [-1, 0, 4]
+        assert all(len(t) == 6 for _, t in acc[cid * IDS])
+    log = open(os.path.join(out, "training.log")).read()
+    assert "Training: " in log and "====== Round 1 ======" in log
+    assert "resume state is not written" in log
+    assert "[agedb_30][1]Accuracy-Flip" in log and "training done" in log
+    for f in ["backbone_0.pth", "backbone_1.pth", "backbone.pth",
+              "clients/client_0/backbone.pth", "clients/client_1/bce_module.pth"]:
+        assert os.path.exists(os.path.join(out, f)), f
+    sd = torch.load(os.path.join(out, "backbone_1.pth"))
+    assert set(sd) == set(ToyNet(16).state_dict())
+    bce = torch.load(os.path.join(out, "clients", "client_0", "bce_module.pth"))
+    assert set(bce) == {"weight", "bias", "converter.0.weight", "converter.0.bias"}
+
+
+def test_cli_writes_final_client_exports_off_cadence(smoke_root, tmp_path):
+    """--client_ckpt_every 0 writes no per-round client exports, so the end
+    of the run writes them once; --round_ckpt_every 0 still exports the
+    final round."""
+    out = str(tmp_path / "run")
+    argv = _argv(smoke_root, out) + ["--total_round", "1", "--client_ckpt_every", "0",
+                                     "--round_ckpt_every", "0"]
+    train_cli.main(train_cli.build_parser().parse_args(argv))
+    assert os.path.exists(os.path.join(out, "backbone_0.pth"))
+    assert os.path.exists(os.path.join(out, "clients", "client_1", "backbone.pth"))
+    assert "saving final per-client checkpoints" in open(
+        os.path.join(out, "training.log")).read()
+
+
+def test_chip_smoke_round_phase_rehearsed_on_cpu(smoke_root, tmp_path):
+    """The smoke's round phase (the CLI's setup/run_round/finish, its log
+    and export checks) at toy size on the CPU, where the kernels' plain
+    versions run and no launch is counted."""
+    launches = chip_smoke.phase_round(_argv(smoke_root, str(tmp_path / "run")))
+    assert launches == {"max_sim": 0, "roc_hist": 0}
