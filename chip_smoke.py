@@ -12,7 +12,14 @@ Phases, in order (any failure raises and the script exits non-zero):
    ragged small shapes and at the reference shape, with the tolerance
    stated; times the kernel, the plain version and one library route
    (CUDA events), and computes the bound from the shapes.
-   * max_sim (mining): within 1e-5, at 420,671 public x 6,500 local x 512.
+   * max_sim (mining; bf16 wgmma/TMA, fp32 sums): within 1e-5 of the plain
+     version on the same bf16 operands and within 2^-7 of the fp32 plain
+     version, masks at 0.4 differing only within 2^-7 of it; at 130x65x512,
+     1x1x512, 1000x300x100 (width padded), 4097x6500x512, an all-negative
+     1000x300x512 case (no zero row may enter the max) and 420,671 public x
+     6,500 local x 512, where it also times the cast to bf16, the bf16 and
+     fp32 library routes, and one full against half a wave of blocks over
+     four copies of the local set (an L2 probe).
    * roc_hist (the local 1:1 eval): identical on dyadic inputs (every dot
      exact in fp32); otherwise equal pos and neg totals, an L1 bin
      difference of at most 2 x the pairs whose fp64 similarity lies within
@@ -67,12 +74,19 @@ from fedfr_tpu_torch.data import codec, write_split
 from fedfr_tpu_torch.ops._build import build_kernels, build_seconds, ptxas_info
 from fedfr_tpu_torch.ops.roc_histogram import tpr_at_fpr_table
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and fp32
-# operations/s outside the tensor cores
+# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, fp32
+# operations/s outside the tensor cores, bf16 operations/s on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
 
-MINING_TOL = 1e-5          # max |kernel - plain|: fp32 FFMA vs cuBLAS fp32 sums
+# mining: bf16 operands, fp32 sums.  Against the plain version on the same
+# bf16 operands only the order of the fp32 sums differs; against the fp32
+# plain version each operand moves by at most 2^-8 relative, so a unit-row
+# score by at most 2^-7 (Cauchy-Schwarz), and masks at THRESHOLD may differ
+# only within 2^-7 of it.
+MINING_BF16_TOL = 1e-5
+MINING_FP32_TOL = 2.0 ** -7
 THRESHOLD = 0.4            # run.sh's hn_threshold
 TPR_TOL = 0.01             # TPR table entries (percent, 2 decimals)
 
@@ -87,18 +101,20 @@ def log(phase: str, **fields) -> None:
           flush=True)
 
 
-def cuda_ms(fn, iters: int, label: str) -> float:
-    """Median milliseconds of ``fn()`` over ``iters`` runs, CUDA events;
-    logs the spread."""
+def cuda_ms(fn, iters: int, label: str, batch: int = 1) -> float:
+    """Median milliseconds of ``fn()`` over ``iters`` runs, CUDA events
+    around ``batch`` calls back to back (the time is per call); logs the
+    spread."""
     times = []
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     log("kernels", timed=label, runs=iters, min_ms=min(times), max_ms=max(times))
     return float(np.median(times))
 
@@ -130,7 +146,7 @@ def phase_build() -> None:
         per_kernel={k: round(v, 2) for k, v in build_seconds.items()})
     for name, info in ptxas_info.items():
         for line in info.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 log("build", kernel=name, ptxas=line.strip())
 
 
@@ -141,68 +157,133 @@ def _unit_rows(n: int, e: int, gen: torch.Generator) -> torch.Tensor:
     return x / x.norm(dim=1, keepdim=True)
 
 
-def _mining_case(n_pub: int, n_loc: int, e: int, seed: int):
-    """Unit-norm fp32 features; each public row leans on a random local row
-    with a random weight, so the scores spread over [0, 1] and the 0.4
-    threshold splits them."""
+def _mining_case(n_pub: int, n_loc: int, e: int, seed: int,
+                 negative: bool = False):
+    """Unit-norm fp32 features.  By default each public row leans on a
+    random local row with a random weight, so the scores spread over [0, 1]
+    and the 0.4 threshold splits them.  ``negative``: local rows cluster
+    around a direction u and public rows around -u, so every score is below
+    -0.5 and a zero row leaking into the max would show as 0."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    local = _unit_rows(n_loc, e, gen)
-    lean = torch.rand(n_pub, 1, device="cuda", generator=gen)
-    pick = torch.randint(0, n_loc, (n_pub,), device="cuda", generator=gen)
-    public = lean * local[pick] + (1 - lean) * _unit_rows(n_pub, e, gen)
+    if negative:
+        u = _unit_rows(1, e, gen)
+        local = u + 0.3 * _unit_rows(n_loc, e, gen)
+        public = -u + 0.3 * _unit_rows(n_pub, e, gen)
+        local = local / local.norm(dim=1, keepdim=True)
+    else:
+        local = _unit_rows(n_loc, e, gen)
+        lean = torch.rand(n_pub, 1, device="cuda", generator=gen)
+        pick = torch.randint(0, n_loc, (n_pub,), device="cuda", generator=gen)
+        public = lean * local[pick] + (1 - lean) * _unit_rows(n_pub, e, gen)
     public = public / public.norm(dim=1, keepdim=True)
     return public.contiguous(), local.contiguous()
 
 
-def check_mining(n_pub: int, n_loc: int, e: int, seed: int) -> float:
-    public, local = _mining_case(n_pub, n_loc, e, seed)
+def check_mining(n_pub: int, n_loc: int, e: int, seed: int,
+                 negative: bool = False) -> dict:
+    """The kernel (on fp32 operands: the wrapper casts them) against the
+    plain version on the same bf16 operands, and against the fp32 plain
+    version with its masks at THRESHOLD."""
+    public, local = _mining_case(n_pub, n_loc, e, seed, negative)
     got = max_sim_mod.max_cosine_similarity(public, local)
-    want = max_sim_mod.max_cosine_similarity_plain(public, local)
+    oracle = max_sim_mod.max_cosine_similarity_plain(public.bfloat16(),
+                                                     local.bfloat16())
+    fp32 = max_sim_mod.max_cosine_similarity_plain(public, local)
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not err <= MINING_TOL:
-        raise AssertionError(f"max_sim {n_pub}x{n_loc}x{e}: max abs err "
-                             f"{err} > {MINING_TOL}")
-    differ = (got > THRESHOLD) != (want > THRESHOLD)
-    near = (want - THRESHOLD).abs() < MINING_TOL
-    if bool((differ & ~near).any()):
-        raise AssertionError(f"max_sim {n_pub}x{n_loc}x{e}: masks at "
-                             f"{THRESHOLD} differ away from the threshold")
-    log("kernels", case=f"{n_pub}x{n_loc}x{e}", max_abs_err=err,
-        above_threshold=int((want > THRESHOLD).sum()))
-    return err
+    case = f"max_sim {n_pub}x{n_loc}x{e}" + (" negative" if negative else "")
+    err = float((got - oracle).abs().max())
+    err_fp32 = float((got - fp32).abs().max())
+    if not err <= MINING_BF16_TOL:
+        raise AssertionError(f"{case}: max abs err {err} against the bf16 "
+                             f"oracle > {MINING_BF16_TOL}")
+    if not err_fp32 <= MINING_FP32_TOL:
+        raise AssertionError(f"{case}: max abs err {err_fp32} against fp32 "
+                             f"> {MINING_FP32_TOL}")
+    flipped = (got > THRESHOLD) != (fp32 > THRESHOLD)
+    near = (fp32 - THRESHOLD).abs() < MINING_FP32_TOL
+    if bool((flipped & ~near).any()):
+        raise AssertionError(f"{case}: masks at {THRESHOLD} differ farther "
+                             f"than {MINING_FP32_TOL} from it")
+    if negative and not float(got.max()) < -0.5:
+        raise AssertionError(f"{case}: max {float(got.max())}: a zero row "
+                             f"entered the max")
+    flips = int(flipped.sum())
+    log("kernels", case=case, max_abs_err_bf16=err, max_abs_err_fp32=err_fp32,
+        mask_flips=flips, above_threshold=int((fp32 > THRESHOLD).sum()),
+        farthest_flip=float((fp32[flipped] - THRESHOLD).abs().max()) if flips else 0.0)
+    return {"max_abs_err": err, "max_abs_err_fp32": err_fp32, "mask_flips": flips}
+
+
+def mining_l2_probe(public: torch.Tensor, local: torch.Tensor) -> None:
+    """The marginal microseconds per 128-row local tile of one block (the
+    time difference between the whole local set and its first half, over
+    the tiles between them, so that the launch and the public tile's load
+    cancel), with one full wave of blocks (132 x 128 public rows, one per
+    SM) and with half a wave.  Each block's tensor work per tile is the
+    same; the L2 reads of the local set halve.  If the half wave runs
+    markedly faster per tile, L2 holds the kernel back.  Each time is the
+    median of 7 runs of 20 launches back to back."""
+    half = local[:local.shape[0] // 2]
+    tiles = -(-local.shape[0] // 128) - -(-half.shape[0] // 128)
+    tensor_us = 2.0 * 128 * 128 * local.shape[1] / (BF16_TENSOR_OPS_PER_S / 132) * 1e6
+    for blocks in (132, 66):
+        sub = public[:blocks * 128]
+        ms = {name: cuda_ms(lambda: max_sim_mod.max_cosine_similarity(sub, loc), 7,
+                            f"kernel, {blocks} blocks, {loc.shape[0]} local rows",
+                            batch=20)
+              for name, loc in (("all", local), ("half", half))}
+        log("kernels", l2_probe_blocks=blocks,
+            us_per_tile=(ms["all"] - ms["half"]) * 1e3 / tiles,
+            tensor_us_per_tile=tensor_us)
 
 
 def phase_mining(n_pub: int, n_loc: int, e: int) -> dict:
     check_mining(130, 65, 512, seed=1)
     check_mining(1, 1, 512, seed=2)
-    err = check_mining(n_pub, n_loc, e, seed=3)
+    check_mining(1000, 300, 100, seed=4)
+    check_mining(4097, 6500, 512, seed=5)
+    check_mining(1000, 300, 512, seed=6, negative=True)
+    errs = check_mining(n_pub, n_loc, e, seed=3)
 
     public, local = _mining_case(n_pub, n_loc, e, seed=3)
     launches = max_sim_mod.max_sim_launches
-    ms = cuda_ms(lambda: max_sim_mod.max_cosine_similarity(public, local), 7,
+    cast_ms = cuda_ms(lambda: (max_sim_mod.kernel_operand(public),
+                               max_sim_mod.kernel_operand(local)), 7,
+                      "cast of both operands to bf16")
+    pub16, loc16 = max_sim_mod.kernel_operand(public), max_sim_mod.kernel_operand(local)
+    ms = cuda_ms(lambda: max_sim_mod.max_cosine_similarity(pub16, loc16), 9,
                  "kernel")
-    plain_ms = cuda_ms(lambda: max_sim_mod.max_cosine_similarity_plain(public, local),
-                       5, "plain")
-    library_ms = cuda_ms(lambda: torch.mm(public, local.t()).amax(1), 5,
-                         "library torch.mm+amax")
+    ms_cast = cuda_ms(lambda: max_sim_mod.max_cosine_similarity(public, local), 7,
+                      "kernel on fp32 operands, cast included")
+    # four copies of the local set (26,000 rows, 26.6 MB), so that enough
+    # tiles lie between the two sizes to time
+    mining_l2_probe(pub16, torch.cat([loc16] * 4))
+    plain_ms = cuda_ms(lambda: max_sim_mod.max_cosine_similarity_plain(pub16, loc16),
+                       5, "plain on the bf16 operands")
+    library_ms = cuda_ms(lambda: torch.mm(pub16, loc16.t()).amax(1), 5,
+                         "library bf16 torch.mm+amax")
+    library_fp32_ms = cuda_ms(lambda: torch.mm(public, local.t()).amax(1), 5,
+                              "library fp32 torch.mm+amax")
     max_sim_mod.max_sim_launches = launches
     ops = 2.0 * n_pub * n_loc * e
-    nbytes = 4.0 * (n_pub * e + n_loc * e + n_pub)
-    ops_ms, bytes_ms = ops / FP32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    nbytes = 2.0 * (n_pub * e + n_loc * e) + 4.0 * n_pub
+    ops_ms = ops / BF16_TENSOR_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     record = {
         "name": "max_sim", "route": "cuda",
         "source": "fedfr_tpu_torch/csrc/max_sim.cu",
         "replaces": "fedfr_tpu/ops/pallas_kernels.py:31",
-        "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "launches": None, **errs, "ms": ms, "cast_ms": cast_ms,
+        "ms_with_cast": ms_cast, "plain_ms": plain_ms,
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": library_ms,
+        "library_ms": library_ms, "library_fp32_ms": library_fp32_ms,
     }
-    log("kernels", shape=f"{n_pub}x{n_loc}x{e}", ms=ms, plain_ms=plain_ms,
-        library_ms=library_ms, fp32_ops_bound_ms=ops_ms, hbm_bound_ms=bytes_ms,
-        tflops=ops / ms / 1e9)
-    del public, local
+    log("kernels", shape=f"{n_pub}x{n_loc}x{e}", ms=ms, cast_ms=cast_ms,
+        ms_with_cast=ms_cast, plain_ms=plain_ms, library_ms=library_ms,
+        library_fp32_ms=library_fp32_ms, bf16_ops_bound_ms=ops_ms,
+        hbm_bound_ms=bytes_ms, tflops=ops / ms / 1e9)
+    del public, local, pub16, loc16
     torch.cuda.empty_cache()
     return record
 

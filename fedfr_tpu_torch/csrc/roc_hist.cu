@@ -27,9 +27,10 @@
 //     j-tiles (y), split so that the grid holds about two blocks per SM;
 //     j-tiles wholly at or below the diagonal (j_max <= i_min) are skipped,
 //     and the i < j guard applies inside the diagonal tile;
-//   * each similarity tile is computed with the FFMA micro-tiling of
-//     csrc/max_sim.cu (K-slices staged in shared memory, TM x TN fp32
-//     accumulators per thread);
+//   * each 128 x 128 similarity tile is computed with fp32 FFMA on the SIMT
+//     cores: per 8-wide K-slice the 256 threads stage both tiles in shared
+//     memory, transposed, and each thread keeps an 8 x 8 micro-tile of dot
+//     products in registers, reading its rows and columns as float4s;
 //   * each pair is binned in registers and counted with a shared-memory
 //     atomicAdd into the block's private 4,002 x int32 histogram (16 KB):
 //     the reference's own atomics design (roc_cuda.py:26-28), made

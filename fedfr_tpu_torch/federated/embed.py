@@ -87,11 +87,12 @@ def max_similarity(local_feats: torch.Tensor, public_feats: torch.Tensor
                    ) -> torch.Tensor:
     """(n_public,) max cos-sim of each public image to ANY local image.
 
-    Both inputs must be l2-normalized.  On the card this is the mining
-    kernel (``ops/max_sim.py``); on the CPU its plain version.
+    Both inputs must be l2-normalized, float32 or bfloat16.  On the card
+    this is the mining kernel (``ops/max_sim.py``, bf16 operands, fp32
+    sums); on the CPU its plain version, in fp32 on the operands as given.
     """
-    return max_cosine_similarity(public_feats.float().contiguous(),
-                                 local_feats.float().contiguous())
+    return max_cosine_similarity(public_feats.contiguous(),
+                                 local_feats.contiguous())
 
 
 def hard_negative_mask(local_feats: torch.Tensor, public_feats: torch.Tensor,

@@ -148,10 +148,14 @@ class Server:
 
     def generate_public_features(self) -> torch.Tensor:
         """Per-round embed of the whole public set for HN mining
-        (server.py:242-263); the features stay on the device."""
+        (server.py:242-263); the features stay on the device.  Mining is
+        their only reader, so on the card they are cast to bf16 once per
+        round, not once per client: at a width that is a multiple of 64
+        (the reference 512) that is the mining kernel's layout, which it
+        reads without a copy.  On the CPU they stay fp32."""
         feats, _ = self._embed(self.data.public_dataset,
                                self.cfg.data.public_batch_size, l2norm=True)
-        return feats
+        return feats.to(torch.bfloat16) if feats.is_cuda else feats
 
     def sample_clients(self) -> List[int]:
         n = self.cfg.data.num_clients

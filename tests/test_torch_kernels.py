@@ -18,27 +18,107 @@ def _unit_rows(n, e, gen):
     return x / x.norm(dim=1, keepdim=True)
 
 
+# The mining kernel computes on bf16 operands with fp32 sums.  Against its
+# oracle (the plain version on the same bf16 operands) only the order of the
+# fp32 sums differs: 1e-5.  Against the fp32 plain version each operand is
+# rounded by at most 2^-8 relative, so for unit rows the score moves by at
+# most 2^-7 (Cauchy-Schwarz).
+MINING_BF16_TOL = 1e-5
+MINING_FP32_TOL = 2.0 ** -7
+
+
+def _check_max_sim(pub, loc):
+    """The kernel on (pub, loc) against the bf16 oracle and the fp32 plain
+    version; returns the kernel's result."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    got = max_sim.max_cosine_similarity(pub, loc)
+    oracle = max_sim.max_cosine_similarity_plain(pub.bfloat16(), loc.bfloat16())
+    fp32 = max_sim.max_cosine_similarity_plain(pub.float(), loc.float())
+    torch.cuda.synchronize()
+    assert got.shape == (pub.shape[0],) and got.dtype == torch.float32
+    assert float((got - oracle).abs().max()) <= MINING_BF16_TOL
+    assert float((got - fp32).abs().max()) <= MINING_FP32_TOL
+    return got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_pub,n_loc,e", [
     (130, 65, 512),     # ragged: neither count a multiple of the 128 tile
     (1, 1, 512),
-    (1000, 300, 100),   # width not a multiple of the 8-wide K slice
+    (1000, 300, 100),   # width padded to the kernel's 64-wide K-chunk
 ])
 def test_max_sim_kernel_matches_plain(n_pub, n_loc, e):
-    """max abs error <= 1e-5 (fp32 FFMA against cuBLAS fp32 sums), and one
-    counted launch per call."""
+    """Within 1e-5 of the bf16 oracle and 2^-7 of the fp32 plain version,
+    and one counted launch per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(n_pub + n_loc + e)
     pub, loc = _unit_rows(n_pub, e, gen), _unit_rows(n_loc, e, gen)
     before = max_sim.max_sim_launches
-    got = max_sim.max_cosine_similarity(pub, loc)
+    _check_max_sim(pub, loc)
     assert max_sim.max_sim_launches == before + 1
-    want = max_sim.max_cosine_similarity_plain(pub, loc)
+
+
+@pytest.mark.cuda
+def test_max_sim_kernel_all_negative_ragged():
+    """Every true score is negative and n_loc % 128 != 0: the zero rows that
+    TMA fills past the local edge must not enter the max."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    u = _unit_rows(1, 512, gen)
+    loc = u + 0.3 * _unit_rows(300, 512, gen)
+    pub = -u + 0.3 * _unit_rows(1000, 512, gen)
+    loc, pub = loc / loc.norm(dim=1, keepdim=True), pub / pub.norm(dim=1, keepdim=True)
+    got = _check_max_sim(pub, loc)
+    assert float(got.max()) < -0.5
+
+
+@pytest.mark.cuda
+def test_max_sim_kernel_takes_bf16_operands_as_they_are():
+    """A bf16 operand in the kernel's layout is read without a copy and
+    gives what its fp32 source gives (the same bf16 values), padded or not;
+    a bf16 public set pairs with an fp32 local set, as mining passes them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for e in (512, 100):
+        pub, loc = _unit_rows(700, e, gen), _unit_rows(200, e, gen)
+        pub_k, loc_k = max_sim.kernel_operand(pub), max_sim.kernel_operand(loc)
+        assert max_sim.kernel_operand(pub_k) is pub_k
+        got = max_sim.max_cosine_similarity(pub_k, loc_k)
+        want = max_sim.max_cosine_similarity(pub, loc)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        _check_max_sim(pub.bfloat16(), loc)
+
+
+@pytest.mark.cuda
+def test_max_sim_one_launch_per_call():
+    """Each CUDA call counts exactly one launch; a CPU call and an empty
+    public set count none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    pub, loc = _unit_rows(300, 512, gen), _unit_rows(129, 512, gen)
+    before = max_sim.max_sim_launches
+    for _ in range(3):
+        max_sim.max_cosine_similarity(pub, loc)
+    assert max_sim.max_sim_launches == before + 3
+    max_sim.max_cosine_similarity(pub.cpu(), loc.cpu())
+    out = max_sim.max_cosine_similarity(pub[:0], loc)
     torch.cuda.synchronize()
-    assert got.shape == (n_pub,)
-    assert float((got - want).abs().max()) <= 1e-5
+    assert out.shape == (0,)
+    assert max_sim.max_sim_launches == before + 3
+
+
+@pytest.mark.cuda
+def test_max_sim_wrapper_rejects_wide_rows():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    with pytest.raises(ValueError, match="512"):
+        max_sim.max_cosine_similarity(torch.randn(4, 520, device="cuda"),
+                                      torch.randn(3, 520, device="cuda"))
 
 
 def _near_edge_pairs(feats, target_size):

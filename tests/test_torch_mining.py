@@ -60,6 +60,99 @@ def test_plain_matches_pallas_interpret(n_pub, n_loc, e, tile_p, tile_l):
                                                  torch.from_numpy(loc)).numpy())
 
 
+@pytest.mark.parametrize("n_pub,n_loc,e,tile_p,tile_l", [
+    (300, 70, 128, 128, 64),
+    (130, 65, 128, 128, 64),
+    (200, 33, 512, 128, 128),
+])
+def test_bf16_plain_matches_pallas_interpret(n_pub, n_loc, e, tile_p, tile_l):
+    """The card's function (the plain version on bf16 operands) against the
+    Pallas kernel fed the same inputs rounded to bf16 by jnp: atol 1e-5."""
+    rng = np.random.default_rng(n_pub * n_loc + e)
+    pub, loc = _unit(rng, n_pub, e), _unit(rng, n_loc, e)
+
+    def jnp_bf16(x):
+        return jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32)
+    want = np.asarray(j_max_sim(jnp_bf16(pub), jnp_bf16(loc), tile_p=tile_p,
+                                tile_l=tile_l, interpret=True))
+    got = max_cosine_similarity(torch.from_numpy(pub).bfloat16(),
+                                torch.from_numpy(loc).bfloat16())
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    # bf16 rounding moves a score by at most 2^-7 for unit rows
+    exact = (pub @ loc.T).max(1)
+    assert np.abs(got.numpy() - exact).max() <= 2.0 ** -7
+
+
+def _bf16_bits_torch(x):
+    return torch.from_numpy(x).to(torch.bfloat16).view(torch.int16).numpy()
+
+
+def _bf16_bits_jnp(x):
+    return np.asarray(jnp.asarray(x).astype(jnp.bfloat16)).view(np.int16)
+
+
+def test_bf16_rounding_matches_jnp():
+    """torch's fp32 -> bf16 rounding is bit-equal to jnp's: on random values
+    and on constructed halfway ties (low 16 bits 0x8000, upper half even and
+    odd) and their neighbours, which round to nearest even."""
+    rng = np.random.default_rng(3)
+    rand = (rng.standard_normal(100_000)
+            * 10.0 ** rng.integers(-6, 6, 100_000)).astype(np.float32)
+    np.testing.assert_array_equal(_bf16_bits_torch(rand), _bf16_bits_jnp(rand))
+    sign = rng.integers(0, 2, 4096, dtype=np.uint32) << 31
+    exponent = rng.integers(100, 150, 4096, dtype=np.uint32) << 23
+    upper = (sign | exponent | (rng.integers(0, 1 << 7, 4096, dtype=np.uint32) << 16))
+    ties = np.concatenate([upper | low for low in (0x7FFF, 0x8000, 0x8001)])
+    ties = ties.view(np.float32)
+    got = _bf16_bits_torch(ties)
+    np.testing.assert_array_equal(got, _bf16_bits_jnp(ties))
+    # halfway ties round to the even upper half
+    half = (upper | 0x8000).view(np.float32)
+    even = _bf16_bits_torch(half).view(np.uint16).astype(np.uint32)
+    assert (even & 1 == 0).all()
+
+
+@pytest.mark.parametrize("e", [100, 512, 16])
+def test_kernel_operand_pads_and_casts(e):
+    """The wrapper's pad-and-cast helper, on the CPU: bf16, width rounded up
+    to 64 with zero columns, the values rounded as ``Tensor.to`` rounds;
+    an operand already in the layout comes back as it is; the results of
+    the plain version and of the wrapper do not change."""
+    from fedfr_tpu_torch.ops.max_sim import kernel_operand
+
+    rng = np.random.default_rng(e)
+    pub = torch.from_numpy(_unit(rng, 90, e))
+    loc = torch.from_numpy(_unit(rng, 40, e))
+    pk, lk = kernel_operand(pub), kernel_operand(loc)
+    width = -(-e // 64) * 64
+    assert pk.dtype == torch.bfloat16 and pk.shape == (90, width)
+    assert pk.is_contiguous() and kernel_operand(pk) is pk
+    assert torch.equal(pk[:, :e], pub.to(torch.bfloat16))
+    assert not pk[:, e:].any() and not lk[:, e:].any()
+    want = max_cosine_similarity_plain(pub.bfloat16(), loc.bfloat16())
+    np.testing.assert_allclose(max_cosine_similarity_plain(pk, lk).numpy(),
+                               want.numpy(), atol=1e-6)
+    np.testing.assert_allclose(max_cosine_similarity(pk, lk).numpy(),
+                               want.numpy(), atol=1e-6)
+
+
+def test_wrapper_takes_float32_and_bfloat16_only():
+    """bf16 and fp32 operands mix (the plain version upcasts both); a padded
+    operand pairs only with another of its width; other float types raise."""
+    from fedfr_tpu_torch.ops.max_sim import kernel_operand
+
+    rng = np.random.default_rng(4)
+    pub, loc = torch.from_numpy(_unit(rng, 30, 100)), torch.from_numpy(_unit(rng, 7, 100))
+    mixed = max_cosine_similarity(pub.bfloat16(), loc)
+    np.testing.assert_array_equal(
+        mixed.numpy(), max_cosine_similarity_plain(pub.bfloat16().float(), loc).numpy())
+    with pytest.raises(ValueError, match="widths"):
+        max_cosine_similarity(kernel_operand(pub), loc)
+    with pytest.raises(TypeError, match="bfloat16"):
+        max_cosine_similarity(pub.half(), loc.half())
+
+
 def test_wrapper_rejects_bad_inputs():
     pub = torch.zeros(4, 8)
     with pytest.raises(ValueError, match="empty"):
