@@ -7,7 +7,9 @@ Phases, in order (any failure raises and the script exits non-zero):
 1. device  — requires CUDA; prints the card's name and power limit
    (nvidia-smi); switches TF32 off for the comparisons.
 2. build   — builds every CUDA kernel of the port from csrc/ (one nvcc per
-   source, started together) and prints the build seconds and ptxas lines.
+   source, started together) and prints the build seconds and ptxas lines
+   (registers, spills); for the ROC kernel also its threads, dynamic shared
+   memory and blocks per SM (the occupancy query).
 3. kernels — each kernel against its plain PyTorch version on the card, at
    ragged small shapes and at the reference shape, with the tolerance
    stated; times the kernel, the plain version and one library route
@@ -21,11 +23,15 @@ Phases, in order (any failure raises and the script exits non-zero):
      fp32 library routes, and one full against half a wave of blocks over
      four copies of the local set (an L2 probe).
    * roc_hist (the local 1:1 eval): identical on dyadic inputs (every dot
-     exact in fp32); otherwise equal pos and neg totals, an L1 bin
-     difference of at most 2 x the pairs whose fp64 similarity lies within
-     1e-6 of a bin edge, and TPR tables within 0.01; at 4,000 targets (one
-     client, 100 IDs x 40) against 160,000 rows (local_veri_4000) x 512,
-     timed on spread and on clustered scores.
+     exact in fp32; ragged cases at E = 100, N = 4,099 and T = 129);
+     otherwise equal pos and neg totals, an L1 bin difference of at most 2 x
+     the pairs whose fp64 similarity lies within 1e-6 of a bin edge, and
+     TPR tables within 0.01; at 4,000 targets (one client, 100 IDs x 40)
+     against 160,000 rows (local_veri_4000) x 512, timed on spread and on
+     clustered scores, with the K-major copy also timed alone, the grid
+     (blocks, blocks per SM, waves) logged, and the SM clock and power
+     sampled (nvidia-smi) over 60 launches, to show whether the card
+     throttles under the kernel.
 4. round   — writes a seeded rec split, a seeded local verification split
    and a seeded agedb_30.bin to a temporary directory and runs two rounds
    through the training CLI's own loop (``fedfr_tpu_torch.train``: setup,
@@ -101,6 +107,26 @@ def log(phase: str, **fields) -> None:
           flush=True)
 
 
+@contextlib.contextmanager
+def sm_clocks(label: str):
+    """Samples the card's SM clock and power draw every 50 ms (nvidia-smi)
+    while the block runs, and logs their medians."""
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                             "--format=csv,noheader,nounits", "-lms", "50"],
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                            text=True)
+    try:
+        yield
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate()
+    rows = [[float(x) for x in line.split(",")] for line in out.splitlines()
+            if line.count(",") == 1]
+    log("clocks", during=label, samples=len(rows),
+        sm_mhz=float(np.median([r[0] for r in rows])) if rows else "not measured",
+        power_w=float(np.median([r[1] for r in rows])) if rows else "not measured")
+
+
 def cuda_ms(fn, iters: int, label: str, batch: int = 1) -> float:
     """Median milliseconds of ``fn()`` over ``iters`` runs, CUDA events
     around ``batch`` calls back to back (the time is per call); logs the
@@ -148,6 +174,9 @@ def phase_build() -> None:
         for line in info.splitlines():
             if "registers" in line or "spill" in line or "wgmma" in line:
                 log("build", kernel=name, ptxas=line.strip())
+    cfg = roc_hist_mod.kernel_config(0)
+    log("build", kernel="roc_hist", threads=cfg["threads"],
+        smem_bytes=cfg["smem_bytes"], blocks_per_sm=cfg["blocks_per_sm"])
 
 
 # ---------------------------------------------------------------- phase 3
@@ -294,7 +323,8 @@ def _roc_case(n: int, t: int, e: int, seed: int, kind: str):
     rows (similarities spread over ~400 bins); ``clustered``: every row near
     one direction (cos ~0.85, a handful of bins, as a sphere64 at random
     weights gives); ``dyadic``: entries in {0, +-1/8, +-1/4}, so that every
-    dot is exact in fp32 (E <= 16 keeps it within [-1, 1])."""
+    dot is exact in fp32 (a multiple of 1/64 of magnitude at most E/16; at
+    E <= 16 within [-1, 1], beyond it some pairs clamp to the end bins)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     if kind == "dyadic":
         vals = torch.tensor([0.0, 0.125, -0.125, 0.25, -0.25], device="cuda")
@@ -384,15 +414,27 @@ def phase_roc(n: int, t: int, e: int) -> dict:
     check_roc(1000, 0, 16, seed=13, kind="spread")
     check_roc(4097, 1000, 512, seed=14, kind="spread")
     check_roc(1000, 333, 16, seed=15, kind="dyadic")
+    check_roc(1000, 333, 100, seed=18, kind="dyadic")   # zero-padded K
+    check_roc(4099, 1000, 16, seed=19, kind="dyadic")   # ragged last j-tile
+    check_roc(4099, 129, 100, seed=20, kind="dyadic")   # T across the diagonal
     err = check_roc(n, t, e, seed=16, kind="spread")
     check_roc(n, t, e, seed=17, kind="clustered")
 
     launches = roc_hist_mod.roc_hist_launches
+    cfg = roc_hist_mod.kernel_config(0)
+    grid = roc_hist_mod.launch_grid(n, t, 0)
+    log("kernels", roc_grid=grid, tile=f"{cfg['bm']}x{cfg['bn']}x{cfg['bk']}",
+        sms=cfg["sms"])
     timed = {}
     for kind, seed in (("clustered", 17), ("spread", 16)):
         feats, labels = _roc_case(n, t, e, seed, kind)
         timed[kind] = cuda_ms(lambda: roc_hist_mod.roc_histogram(feats, labels, t),
-                              5, f"roc kernel {kind}")
+                              5, f"roc kernel {kind}, copy included")
+    with sm_clocks("roc kernel spread, 20 launches back to back x 3"):
+        cuda_ms(lambda: roc_hist_mod.roc_histogram(feats, labels, t), 3,
+                "roc kernel spread, batched", batch=20)
+    copy_ms = cuda_ms(lambda: roc_hist_mod.kernel_operand(feats, cfg["bn"], cfg["bk"]),
+                      7, "roc K-major copy alone")
     # the plain version and the library route on the spread case
     plain_ms = cuda_ms(lambda: roc_hist_mod.roc_histogram_plain(feats, labels, t),
                        3, "roc plain")
@@ -408,13 +450,15 @@ def phase_roc(n: int, t: int, e: int) -> dict:
         "source": "fedfr_tpu_torch/csrc/roc_hist.cu",
         "replaces": "fedfr_tpu/ops/pallas_kernels.py:93",
         "launches": None, "max_abs_err": err, "ms": timed["spread"],
-        "ms_clustered": timed["clustered"], "plain_ms": plain_ms,
+        "ms_clustered": timed["clustered"], "copy_ms": copy_ms,
+        "blocks": grid["blocks"], "blocks_per_sm": grid["blocks_per_sm"],
+        "waves": grid["waves"], "plain_ms": plain_ms,
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": library_ms,
     }
     log("kernels", shape=f"roc {t}x{n}x{e}", pairs=pairs, ms=timed["spread"],
-        ms_clustered=timed["clustered"], plain_ms=plain_ms,
+        ms_clustered=timed["clustered"], copy_ms=copy_ms, plain_ms=plain_ms,
         library_ms=library_ms, fp32_ops_bound_ms=ops_ms, hbm_bound_ms=bytes_ms,
         tflops=ops / timed["spread"] / 1e9)
     del feats, labels

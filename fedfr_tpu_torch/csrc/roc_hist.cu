@@ -1,49 +1,74 @@
 // All-pairs cosine ROC histogram: the per-client 1:1 verification kernel.
 //
 // Replaces the TPU kernel fedfr_tpu/ops/pallas_kernels.py::_roc_hist_kernel
-// (launched by roc_histogram_pair, wrapped by roc_histogram), which the
-// per-round personalized 1:1 eval runs once per candidate client
-// (LocalVerificationCallback.veri_test -> client_roc ->
+// (pallas_kernels.py:93; launched by roc_histogram_pair, wrapped by
+// roc_histogram), which the per-round personalized 1:1 eval runs once per
+// candidate client (LocalVerificationCallback.veri_test -> client_roc ->
 // pairwise_roc_histogram).
 //
 // What it computes.  feats (N, E) fp32 with the T target rows first, labels
 // (N,) int32.  For every pair i < T, i < j < N:
-//     sim = <feats[i], feats[j]>            IEEE fp32, summed in k order
+//     sim = <feats[i], feats[j]>            IEEE fp32 fmaf, summed in k order
 //     bin = clamp((int)((sim + 1) * 1000), 0, 2000)   two rounded steps,
 //                                                      truncated toward zero
 //     out[2 * bin + (labels[i] != labels[j])] += 1
 // out is the interleaved [pos, neg] histogram of 2 x 2001 int64 counts.
+// The kernel reads the features K-major: featsT (E_pad, N_pad), the
+// wrapper's zero-padded transposed copy (featsT[k][r] = feats[r][k]).  Zero
+// columns past E add exact zeros at the end of each sum; rows past N and T
+// are masked, so padding changes no count.
 //
 // What bounds it on an H100.  2 * E FFMA-operations per pair on the SIMT
 // cores (TF32 tensor cores would move pairs by about one bin): at the
 // reference shape (T = 4,000 of N = 160,000, E = 512) that is 631,998,000
-// pairs, 6.47e11 operations, 9.7 ms at 67 TFLOP/s of fp32, against 0.1 ms
-// to read the 328 MB of features from HBM.  So it is bound by operations.
+// pairs, 6.47e11 operations, 9.66 ms at 67 TFLOP/s of fp32, against 0.1 ms
+// to read the 328 MB of features from HBM.  So it is bound by operations,
+// and the design's work is to keep the FFMA pipes issuing.
 //
 // Design.  The TPU kernel counts each tile with a radix one-hot matmul in
 // VMEM and carries the count block across its sequential grid.  CUDA blocks
 // run in parallel, so here:
 //   * block (x, y) owns BM target rows (x) and a contiguous range of BN-row
-//     j-tiles (y), split so that the grid holds about two blocks per SM;
-//     j-tiles wholly at or below the diagonal (j_max <= i_min) are skipped,
-//     and the i < j guard applies inside the diagonal tile;
-//   * each 128 x 128 similarity tile is computed with fp32 FFMA on the SIMT
-//     cores: per 8-wide K-slice the 256 threads stage both tiles in shared
-//     memory, transposed, and each thread keeps an 8 x 8 micro-tile of dot
-//     products in registers, reading its rows and columns as float4s;
+//     j-tiles (y); j-tiles wholly at or below the diagonal are skipped and
+//     the i < j guard applies inside the tile.  The wrapper sizes the split
+//     from the kernel's own occupancy (fedfr_roc_hist_config) so that the
+//     grid is one wave: a second, partial wave nearly doubles the time;
+//   * staging: the block walks its (j-tile, K-slice) sequence as one stream
+//     through a ring of STAGES shared-memory buffers.  Each buffer holds
+//     one BK-wide K-slice of the target tile and of the j-tile, already in
+//     the [k][row] layout the inner loop reads, copied by 16-byte
+//     cp.async.cg (each warp one contiguous 512-byte run of a featsT row,
+//     no register round trip).  STAGES - 1 slices are in flight while one
+//     is computed, across j-tile boundaries and under the epilogue, with
+//     one __syncthreads per slice;
+//   * reuse: the target tile is re-read from L2 for every j-tile (it does
+//     not fit in shared memory at E = 512); 32 KB per 128 x 128 x 32 slice
+//     is ~8 bytes per SM clock, well inside L2's rate.  Measured on the
+//     H100, a 128 x 256 tile (512 threads, one block per SM), which halves
+//     those rereads, was no faster, nor were 16-wide slices in 4 stages or
+//     a 2-stage ring (PERF.md), so the tile and the ring are fixed;
+//   * each thread keeps an 8 x 8 micro-tile of dot products in registers
+//     (two 4-wide halves BM/2 and BN/2 apart, so that its row group reads
+//     consecutive float4s: 4 shared loads feed 64 FFMAs);
 //   * each pair is binned in registers and counted with a shared-memory
 //     atomicAdd into the block's private 4,002 x int32 histogram (16 KB):
 //     the reference's own atomics design (roc_cuda.py:26-28), made
-//     hierarchical;
+//     hierarchical.  Scores clustered in a few bins took -1.5% to +1.6% of
+//     the spread scores' time on the H100 (64 atomics per 32,768 FFMA a
+//     thread and tile), so same-bin counts are not aggregated within a warp
+//     first;
 //   * the block flushes once, with a 64-bit global atomicAdd per non-zero bin.
-// Ragged edges are masked (loads past an edge read 0; pairs past T or N are
-// not counted), so nothing is padded.  A block's int32 counters hold at most
-// BM x (its j-rows) pairs, which the wrapper's 2^31-element limit on feats
-// keeps below 2^31.
+// A block's int32 counters hold at most BM x N_pad pairs; the wrapper keeps
+// that below 2^31.  Dynamic shared memory: STAGES x 32,768 B of ring +
+// 16,008 B of histogram + 512 B of the block's labels = 114,824 B, so 2
+// blocks per SM, as the 128 registers a thread that __launch_bounds__
+// allows.
 //
-// Interface: a plain C function (built with nvcc into a shared library and
-// called through ctypes) that launches on the caller's stream, does not
-// synchronise, and returns cudaGetLastError().  The caller zeroes `out`.
+// Interface: plain C functions (built with nvcc into a shared library and
+// called through ctypes).  fedfr_roc_hist_config reports the tile sizes and
+// how many blocks of the kernel, as built, fit on one SM.  fedfr_roc_hist
+// launches on the caller's stream, does not synchronise, and returns
+// cudaGetLastError().  The caller zeroes `out`.
 
 #include <cuda_runtime.h>
 
@@ -51,21 +76,28 @@ namespace {
 
 constexpr int BINS = 2001;         // int((cos + 1) * 1000) for cos in [-1, 1]
 constexpr int HIST = 2 * BINS;     // interleaved [pos, neg]
-constexpr int BM = 128;            // target rows per block
-constexpr int BN = 128;            // j rows per tile
-constexpr int BK = 8;              // K-slice staged in shared memory
+constexpr int BM = 128;            // target rows per block tile
+constexpr int BN = 128;            // j rows per block tile
+constexpr int BK = 32;             // K-slice per ring stage
+constexpr int STAGES = 3;          // ring depth: STAGES - 1 slices in flight
 constexpr int TM = 8;              // micro-tile rows per thread
 constexpr int TN = 8;              // micro-tile cols per thread
-constexpr int TPC = BN / TN;       // 16 threads share one row of the block
-constexpr int THREADS = (BM / TM) * TPC;  // 256
-constexpr int PAD = 4;             // keeps float4 alignment of each k-row
+constexpr int TPC = BN / TN;       // threads across one row of the tile
+constexpr int THREADS = (BM / TM) * TPC;
+constexpr int MIN_BLOCKS = 512 / THREADS;  // caps registers at 128 a thread
+constexpr int A_FLOATS = BK * BM;  // one stage: [BK][BM] targets, then
+constexpr int B_FLOATS = BK * BN;  //            [BK][BN] j-rows
+constexpr int STAGE_FLOATS = A_FLOATS + B_FLOATS;
+constexpr int SMEM_BYTES = (STAGES * STAGE_FLOATS + HIST + BM) * 4;
 
-static_assert(THREADS == 256, "tiling assumes 256 threads");
-static_assert(BM == BN, "the diagonal skip assumes square tiles");
-static_assert(BM * BK == THREADS * 4 && BN * BK == THREADS * 4,
-              "each thread stages 4 elements of each operand per K-slice");
+static_assert(BN % BM == 0, "the diagonal skip assumes BM divides BN");
+static_assert(TM == 8 && TN == 8, "micro-tiles are two 4-wide halves");
+static_assert(A_FLOATS % (4 * THREADS) == 0 && B_FLOATS % (4 * THREADS) == 0,
+              "each thread copies whole 16-byte vectors of each operand");
+static_assert(BM % 128 == 0 && BN % 128 == 0,
+              "a warp copies a contiguous 512-byte run of one featsT row");
 
-// rows / cols of a thread: two 4-wide halves 64 apart, so that the 16
+// rows / cols of a thread: two 4-wide halves BM/2 (BN/2) apart, so that the
 // threads of a row group read consecutive float4s from shared memory
 __device__ __forceinline__ int tile_row(int ty, int i) {
   return (i < 4 ? ty * 4 + i : BM / 2 + ty * 4 + (i - 4));
@@ -81,79 +113,128 @@ __device__ __forceinline__ int bin_of(float sim) {
   return min(max(b, 0), BINS - 1);
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
-roc_hist_kernel(const float* __restrict__ feats, const int* __restrict__ labels,
-                unsigned long long* __restrict__ out, int n, int t, int e,
-                int j_tiles, int splits) {
-  __shared__ __align__(16) float As[BK][BM + PAD];
-  __shared__ __align__(16) float Bs[BK][BN + PAD];
-  __shared__ int hist[HIST];
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(dst), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Start the copies of K-slice k0 of the target tile (featsT columns i0..)
+// and of the j-tile (columns j0..) into one ring stage.  Vector v of an
+// operand is row v / (cols / 4), float4 v % (cols / 4) of its [BK][cols]
+// slice, so that consecutive threads copy consecutive 16 bytes.
+__device__ __forceinline__ void load_slice(float* stage,
+                                           const float* __restrict__ featsT,
+                                           int n_pad, int i0, int j0, int k0,
+                                           int tid) {
+#pragma unroll
+  for (int q = 0; q < A_FLOATS / (4 * THREADS); ++q) {
+    const int v = q * THREADS + tid;
+    const int r = v / (BM / 4), c = (v % (BM / 4)) * 4;
+    cp_async16(stage + r * BM + c, featsT + (size_t)(k0 + r) * n_pad + i0 + c);
+  }
+#pragma unroll
+  for (int q = 0; q < B_FLOATS / (4 * THREADS); ++q) {
+    const int v = q * THREADS + tid;
+    const int r = v / (BN / 4), c = (v % (BN / 4)) * 4;
+    cp_async16(stage + A_FLOATS + r * BN + c,
+               featsT + (size_t)(k0 + r) * n_pad + j0 + c);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+roc_hist_kernel(const float* __restrict__ featsT, const int* __restrict__ labels,
+                unsigned long long* __restrict__ out, int n, int t, int n_pad,
+                int k_slices, int j_tiles, int splits) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  int* hist = reinterpret_cast<int*>(smem + STAGES * STAGE_FLOATS);
+  int* lab_i = hist + HIST;
 
   const int tid = threadIdx.x;
-  for (int b = tid; b < HIST; b += THREADS) hist[b] = 0;
-
   const int tx = tid % TPC;        // column group within the tile
   const int ty = tid / TPC;        // row group within the tile
   const int i0 = blockIdx.x * BM;
 
+  for (int b = tid; b < HIST; b += THREADS) hist[b] = 0;
+  for (int r = tid; r < BM; r += THREADS)
+    lab_i[r] = i0 + r < t ? __ldg(labels + i0 + r) : 0;
+
   // j-tile jt holds a pair with j > i for some i of this block iff
-  // jt * BN + BN - 1 > i0, i.e. jt >= blockIdx.x (square tiles)
-  const long long span = j_tiles - blockIdx.x;
-  const int jt_begin = blockIdx.x + (int)(span * blockIdx.y / splits);
-  const int jt_end = blockIdx.x + (int)(span * (blockIdx.y + 1) / splits);
+  // jt * BN + BN - 1 > i0, i.e. jt >= i0 / BN (BM divides BN)
+  const int jt_first = i0 / BN;
+  const long long span = j_tiles - jt_first;
+  const int jt_begin = jt_first + (int)(span * blockIdx.y / splits);
+  const int jt_end = jt_first + (int)(span * (blockIdx.y + 1) / splits);
+  const int steps = (jt_end - jt_begin) * k_slices;
 
-  // staging map: thread -> (row, 4 consecutive k) of a BM x BK slice
-  const int ld_row = tid / 2;
-  const int ld_k = (tid % 2) * 4;
-  const int a_row = i0 + ld_row;
-
-  int lab_i[TM];
+  // the producer side of the ring: the next (j-tile, K-slice) to copy
+  int ld_jt = jt_begin, ld_ks = 0, ld_stage = 0;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = i0 + tile_row(ty, i);
-    lab_i[i] = row < t ? __ldg(labels + row) : 0;
-  }
-  __syncthreads();  // hist is zeroed
-
-  for (int jt = jt_begin; jt < jt_end; ++jt) {
-    const int j0 = jt * BN;
-    float acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-    const int b_row = j0 + ld_row;
-    for (int k0 = 0; k0 < e; k0 += BK) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int k = k0 + ld_k + q;
-        As[ld_k + q][ld_row] =
-            (a_row < t && k < e) ? __ldg(feats + (size_t)a_row * e + k) : 0.0f;
-        Bs[ld_k + q][ld_row] =
-            (b_row < n && k < e) ? __ldg(feats + (size_t)b_row * e + k) : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        float a[TM], b[TN];
-        const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][BM / 2 + ty * 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][BN / 2 + tx * 4]);
-        a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
-        a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-        b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
-        b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) {
+      load_slice(ring + ld_stage * STAGE_FLOATS, featsT, n_pad, i0, ld_jt * BN,
+                 ld_ks * BK, tid);
+      if (++ld_ks == k_slices) { ld_ks = 0; ++ld_jt; }
+      ld_stage = ld_stage + 1 == STAGES ? 0 : ld_stage + 1;
     }
+    cp_async_commit();  // an empty group keeps the wait count uniform
+  }
 
-    // bin and count this tile's pairs: i a target row, j real, i < j
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+
+  int jt = jt_begin, ks = 0, rd_stage = 0;
+  for (int step = 0; step < steps; ++step) {
+    // this thread's copies of slice `step` have landed; the barrier makes
+    // everyone's visible and frees the stage that slice step - 1 used
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (step + STAGES - 1 < steps) {
+      load_slice(ring + ld_stage * STAGE_FLOATS, featsT, n_pad, i0, ld_jt * BN,
+                 ld_ks * BK, tid);
+      if (++ld_ks == k_slices) { ld_ks = 0; ++ld_jt; }
+      ld_stage = ld_stage + 1 == STAGES ? 0 : ld_stage + 1;
+    }
+    cp_async_commit();
+
+    const float* as = ring + rd_stage * STAGE_FLOATS;
+    const float* bs = as + A_FLOATS;
+    rd_stage = rd_stage + 1 == STAGES ? 0 : rd_stage + 1;
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[TM], b[TN];
+      const float4 a0 = *reinterpret_cast<const float4*>(as + kk * BM + ty * 4);
+      const float4 a1 = *reinterpret_cast<const float4*>(as + kk * BM + BM / 2 + ty * 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(bs + kk * BN + tx * 4);
+      const float4 b1 = *reinterpret_cast<const float4*>(bs + kk * BN + BN / 2 + tx * 4);
+      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
+      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
+      b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
+      b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (++ks < k_slices) continue;
+
+    // the j-tile is complete: bin and count its pairs (i a target row, j
+    // real, i < j) while the next tile's first slices are in flight
+    const int j0 = jt * BN;
+    int li[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) li[i] = lab_i[tile_row(ty, i)];
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int col = j0 + tile_col(tx, j);
@@ -163,10 +244,16 @@ roc_hist_kernel(const float* __restrict__ feats, const int* __restrict__ labels,
         for (int i = 0; i < TM; ++i) {
           const int row = i0 + tile_row(ty, i);
           if (row < t && row < col)
-            atomicAdd(&hist[2 * bin_of(acc[i][j]) + (lab_i[i] != lab_j)], 1);
+            atomicAdd(&hist[2 * bin_of(acc[i][j]) + (li[i] != lab_j)], 1);
         }
       }
     }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+    ks = 0;
+    ++jt;
   }
 
   __syncthreads();
@@ -176,19 +263,43 @@ roc_hist_kernel(const float* __restrict__ feats, const int* __restrict__ labels,
   }
 }
 
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(roc_hist_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              SMEM_BYTES);
+}
+
 }  // namespace
 
-extern "C" int fedfr_roc_hist(const float* feats, const int* labels,
-                              unsigned long long* out, int n, int t, int e,
-                              int splits, int device, void* stream) {
+// cfg <- {BM, BN, BK, blocks of the kernel that fit on one SM, threads per
+// block, dynamic shared memory bytes per block}
+extern "C" int fedfr_roc_hist_config(int device, int* cfg) {
   cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = allow_smem();
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, roc_hist_kernel,
+                                                        THREADS, SMEM_BYTES);
+  cfg[0] = BM; cfg[1] = BN; cfg[2] = BK;
+  cfg[3] = blocks; cfg[4] = THREADS; cfg[5] = SMEM_BYTES;
+  return static_cast<int>(err);
+}
+
+// featsT (e_pad, n_pad): n_pad a multiple of BN, e_pad a positive multiple
+// of BK (an E = 0 input still needs one slice of zeros), zero-padded
+extern "C" int fedfr_roc_hist(const float* featsT, const int* labels,
+                              unsigned long long* out, int n, int t, int n_pad,
+                              int e_pad, int splits, int device, void* stream) {
+  if (n_pad % BN != 0 || e_pad % BK != 0 || e_pad < BK || n > n_pad || t > n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = allow_smem();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0 && t > 0 && splits > 0) {
-    const int i_tiles = (t + BM - 1) / BM;
-    const int j_tiles = (n + BN - 1) / BN;
-    const dim3 grid(i_tiles, splits);
-    roc_hist_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        feats, labels, out, n, t, e, j_tiles, splits);
+    const dim3 grid((t + BM - 1) / BM, splits);
+    roc_hist_kernel<<<grid, THREADS, SMEM_BYTES,
+                      static_cast<cudaStream_t>(stream)>>>(
+        featsT, labels, out, n, t, n_pad, e_pad / BK, (n + BN - 1) / BN, splits);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,9 +7,11 @@ interleaved [pos, neg] pair counts over every pair ``i < target_size``,
 ``fedfr_tpu/ops/pallas_kernels.py::_roc_hist_kernel`` (wrapped there by
 ``roc_histogram``).
 
-* On a CUDA tensor it launches the hand-written kernel in
-  ``csrc/roc_hist.cu`` (built at first use) on the current stream, without
-  synchronising, and raises if the launch fails.
+* On a CUDA tensor it makes the kernel's operand (``kernel_operand``: a
+  K-major, zero-padded copy of the features) and launches the hand-written
+  kernel in ``csrc/roc_hist.cu`` (built at first use) on the current stream,
+  without synchronising, on a grid that ``fit_splits`` sizes to one wave by
+  the kernel's own occupancy.  It raises if the launch fails.
 * On a CPU tensor it runs ``roc_histogram_plain``, the same function in
   plain PyTorch (tiled ``mm``, the same binning, ``torch.bincount``, as the
   JAX package's ``roc_histogram._tiled_histogram_scan``).  The CPU tests and
@@ -76,6 +78,68 @@ def _check(feats: torch.Tensor, labels: torch.Tensor) -> None:
         raise ValueError("more than 2^31 feature elements is not supported")
 
 
+def kernel_operand(feats: torch.Tensor, row_multiple: int,
+                   k_multiple: int) -> torch.Tensor:
+    """The kernel's operand: (E_pad, N_pad) fp32, contiguous, with
+    ``out[k, r] = feats[r, k]`` and zeros past N and E.  N_pad is the next
+    multiple of ``row_multiple``, E_pad the next positive multiple of
+    ``k_multiple``.  Zero columns add exact zeros at the end of every dot,
+    and the kernel masks rows past N, so the padding changes no count."""
+    n, e = feats.shape
+    n_pad = -(-n // row_multiple) * row_multiple
+    e_pad = max(1, -(-e // k_multiple)) * k_multiple
+    out = feats.new_empty((e_pad, n_pad), dtype=torch.float32)
+    out[:e, :n].copy_(feats.t())
+    out[:e, n:].zero_()
+    out[e:].zero_()
+    return out
+
+
+def fit_splits(i_tiles: int, j_tiles: int, sms: int, blocks_per_sm: int) -> int:
+    """j-range splits per target tile, so that the (i_tiles, splits) grid
+    holds at most the ``sms * blocks_per_sm`` blocks that run at once: a
+    block more starts a second wave and nearly doubles the time.  At least
+    1 (a grid wider than a wave cannot be helped), at most ``j_tiles`` and
+    CUDA's 65,535 grid rows."""
+    return max(1, min(j_tiles, 65535, sms * blocks_per_sm // i_tiles))
+
+
+_configs = {}
+
+
+def kernel_config(device: int) -> dict:
+    """The kernel's tile sizes and occupancy as built, from the library
+    itself, with the card's SM count: keys bm, bn, bk, blocks_per_sm,
+    threads, smem_bytes, sms."""
+    cfg = _configs.get(device)
+    if cfg is None:
+        fn = load_kernel("roc_hist").fedfr_roc_hist_config
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        vals = (ctypes.c_int * 6)()
+        err = fn(device, vals)
+        if err != 0 or vals[3] < 1:
+            raise RuntimeError(f"roc_hist kernel does not fit on an SM: CUDA "
+                               f"error {err}, {vals[3]} blocks per SM")
+        cfg = dict(zip(("bm", "bn", "bk", "blocks_per_sm", "threads",
+                        "smem_bytes"), vals))
+        cfg["sms"] = torch.cuda.get_device_properties(device).multi_processor_count
+        _configs[device] = cfg
+    return cfg
+
+
+def launch_grid(n: int, t: int, device: int) -> dict:
+    """The grid the wrapper launches for N rows and T targets: blocks
+    (i_tiles x splits), blocks_per_sm and waves (blocks over the blocks
+    that run at once)."""
+    cfg = kernel_config(device)
+    i_tiles, j_tiles = -(-t // cfg["bm"]), -(-n // cfg["bn"])
+    splits = fit_splits(i_tiles, j_tiles, cfg["sms"], cfg["blocks_per_sm"])
+    return {"i_tiles": i_tiles, "splits": splits, "blocks": i_tiles * splits,
+            "blocks_per_sm": cfg["blocks_per_sm"],
+            "waves": i_tiles * splits / (cfg["sms"] * cfg["blocks_per_sm"])}
+
+
 def roc_histogram(feats: torch.Tensor, labels: torch.Tensor,
                   target_size: int) -> torch.Tensor:
     """(2 * NUM_BINS,) int64 interleaved [pos, neg] pair counts.
@@ -91,28 +155,26 @@ def roc_histogram(feats: torch.Tensor, labels: torch.Tensor,
         return roc_histogram_plain(feats, labels, target_size)
     if feats.device.type != "cuda":
         raise ValueError(f"unsupported device {feats.device}")
-    n, e = feats.shape
+    n = feats.shape[0]
     t = min(int(target_size), n)
     out = torch.zeros(2 * NUM_BINS, dtype=torch.int64, device=feats.device)
     if t <= 0:
         return out
-    lib = load_kernel("roc_hist")
-    fn = lib.fedfr_roc_hist
+    device = (feats.device.index if feats.device.index is not None
+              else torch.cuda.current_device())
+    cfg = kernel_config(device)
+    if cfg["bm"] * -(-n // cfg["bn"]) * cfg["bn"] >= 2 ** 31:
+        raise ValueError(f"{n} rows: a block's int32 counters could overflow")
+    feats_k = kernel_operand(feats, cfg["bn"], cfg["bk"])
+    grid = launch_grid(n, t, device)
+    fn = load_kernel("roc_hist").fedfr_roc_hist
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
-    device = (feats.device.index if feats.device.index is not None
-              else torch.cuda.current_device())
-    # split each target tile's j-range so that the grid fills at most the
-    # two blocks per SM that run at once (the kernel's tiles are 128 rows):
-    # one block more would start a second wave and nearly double the time
-    i_tiles, j_tiles = -(-t // 128), -(-n // 128)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = max(1, min(j_tiles, 65535, 2 * sms // i_tiles))
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     stream = torch.cuda.current_stream(feats.device).cuda_stream
-    err = fn(feats.data_ptr(), labels.data_ptr(), out.data_ptr(), n, t, e,
-             splits, device, stream)
+    err = fn(feats_k.data_ptr(), labels.data_ptr(), out.data_ptr(), n, t,
+             feats_k.shape[1], feats_k.shape[0], grid["splits"], device, stream)
     if err != 0:
         raise RuntimeError(f"roc_hist kernel launch failed: CUDA error {err}")
     roc_hist_launches += 1

@@ -140,7 +140,10 @@ def _near_edge_pairs(feats, target_size):
     (64, 64, 16, True),
     (50, 3, 16, False),
     (4097, 1000, 512, False),  # ragged 128-tiles at the reference width
-    (300, 300, 100, False),    # width not a multiple of the 8-wide K slice
+    (300, 300, 100, False),    # width not a multiple of the 32-wide K slice
+    (1000, 333, 100, True),    # E = 100: zero-padded K columns
+    (4099, 1000, 16, True),    # N = 4,099: a ragged last j-tile
+    (4099, 129, 100, True),    # T = 129: one target past the first diagonal tile
 ])
 def test_roc_hist_kernel_matches_plain(n, t, e, dyadic):
     """Dyadic entries make every dot exact in fp32, so the histograms are
