@@ -45,16 +45,40 @@ Phases, in order (any failure raises and the script exits non-zero):
    parse_log.py reads, finite accuracies and the .pth exports.  The last
    round runs under torch.profiler and prints its device time by kernel (so
    its seconds include the profiler's cost).
+5. pretrained — writes a pretrained root with the smoke's own writer (a
+   seeded iresnet100 / E=512 state_dict in the reference layout as
+   backbone.pth, an fc.pth over the public IDs, the public labels) and runs
+   one round of iresnet100 from it through the training CLI with run.sh's
+   own flags (--pretrained_root, --fedface) and the BottleBlock converter
+   (--converter_layer 2), on the round phase's data: 112x112, bf16 trunk,
+   batch 256, 2 local epochs.  The round phase's checks (launches set to 0
+   before and read after: one mining launch per client, one ROC launch per
+   candidate plus the baselines; finite losses; logs; exports), the three
+   "loaded pretrained ..." lines in training.log, and the round's train,
+   local-eval and .bin seconds with its peak device memory
+   (torch.cuda.max_memory_allocated).
+6. local_all — the post-training eval CLI (fedfr_tpu_torch.local_all) on
+   that round's exports, three times: per-client backbones and converters
+   for 1:1 (one ROC launch per client, counted) and 1:n (against
+   local_gallery_200, no ROC launch), and the round-0 global backbone for
+   1:1 (one ROC launch per client); the launch counts set to 0 before the
+   three calls and read after, every line of <run>/local_log.txt checked
+   against the formats parse_log.py and local_all.py use, and each call's
+   seconds.
 
-The line before the last is a JSON object with every ported kernel; the
-last line is the device record.  Widths are the reference's (sphere64,
-E=512, 112x112, batch 256); counts are cut:
+The line before the last is a JSON object with every ported kernel (its
+``launches`` summed over phases 4-6, and by phase); the last line is the
+device record.  Widths are the reference's (sphere64 and iresnet100, E=512,
+112x112, batch 256); counts are cut:
   * 2 clients x 100 IDs x 8 train images (reference: 40 clients x 100 IDs);
   * a 4,000-image public set, 2,000 IDs x 2 (reference: 420,671 images);
   * 2 local epochs, then 4; 2 rounds (reference: 10 epochs, 20 rounds);
+    the iresnet100 round: 2 local epochs, 1 round;
   * local_veri: 2 clients x 100 IDs x 10 images (reference: 4,000 IDs x 40);
+    local_gallery: the 8 train images of each ID;
   * agedb_30.bin: 1,200 pairs (AgeDB-30: 6,000);
-  * random weights from seed 100 (reference: pretrained).
+  * random weights from seed 100 (reference: pretrained), for iresnet100
+    written as the pretrained root.
 """
 
 from __future__ import annotations
@@ -75,8 +99,10 @@ import torch
 
 import fedfr_tpu_torch.ops.max_sim as max_sim_mod
 import fedfr_tpu_torch.ops.roc_hist as roc_hist_mod
+from fedfr_tpu_torch import local_all as local_all_cli
 from fedfr_tpu_torch import train as train_cli
 from fedfr_tpu_torch.data import codec, write_split
+from fedfr_tpu_torch.models import build_backbone
 from fedfr_tpu_torch.ops._build import build_kernels, build_seconds, ptxas_info
 from fedfr_tpu_torch.ops.roc_histogram import tpr_at_fpr_table
 
@@ -100,6 +126,15 @@ TPR_TOL = 0.01             # TPR table entries (percent, 2 decimals)
 # copy: the smoke does not import the repository's scripts)
 LOCAL_LOG_PATTERNS = (re.compile(r"Target label from (\d+) to (\d+)"),
                       re.compile(r"Epoch (-?\d+), TPR \(-1 to -6\) = \[(.*)\]"))
+# the summary lines local_all appends to <ckpt_path>/local_log.txt (the
+# repository's local_all.py:112,188-203)
+MEAN_PATTERNS = (re.compile(r"Mean \(-6 to -1\):$"),
+                 re.compile(r"\[(\d+\.\d\d ){6}\]$"))
+ONE_TO_N_PATTERNS = (re.compile(r"1:n at Epoch : (-?\d+)$"),
+                     re.compile(r"Far: \['1\.0e-06', '1\.0e-05', '1\.0e-04', "
+                                r"'1\.0e-03'\]$"),
+                     re.compile(r"Pr : \[('\d\.\d{5}'(, )?){4}\]$"))
+SINGLE_PATTERN = re.compile(r"1:1 at Epoch : (-?\d+)$")
 
 
 def log(phase: str, **fields) -> None:
@@ -497,14 +532,17 @@ def write_fl_split(root: str, n_clients: int, ids: int, imgs_per_id: int,
     """split_train_i{N}c{K}/client_*/ + split_pretrain_6000/client_0000/ +
     local_veri_{N}/ (the ``test`` prefix, ``veri_imgs`` images per identity
     drawn from the train split's identity patterns, global labels: client c
-    owns c*ids .. c*ids+ids-1), written with the port's own ``write_split``."""
+    owns c*ids .. c*ids+ids-1) + local_gallery_{N}/ (the ``test`` prefix:
+    every client's train images under their global labels, as
+    split_dataset/split_FL.py writes the gallery), written with the port's
+    own ``write_split``."""
     rng = np.random.default_rng(seed)
     split = os.path.join(root, "split_train_i%04dc%04d" % (n_clients * ids, n_clients))
-    bases = []
+    bases, train = [], []
     for c in range(n_clients):
         bases.append(_patterns(rng, ids, size))
-        _write(os.path.join(split, "client_%04d" % c), "train",
-               _noisy(rng, bases[-1], imgs_per_id),
+        train.append(_noisy(rng, bases[-1], imgs_per_id))
+        _write(os.path.join(split, "client_%04d" % c), "train", train[-1],
                np.repeat(np.arange(ids), imgs_per_id), ids, c * ids)
     _write(os.path.join(root, "split_pretrain_6000", "client_0000"), "train",
            _noisy(rng, _patterns(rng, pub_ids, size), pub_imgs),
@@ -512,6 +550,9 @@ def write_fl_split(root: str, n_clients: int, ids: int, imgs_per_id: int,
     veri = np.concatenate([_noisy(rng, b, veri_imgs) for b in bases])
     _write(os.path.join(root, "local_veri_%d" % (n_clients * ids)), "test",
            veri, np.repeat(np.arange(n_clients * ids), veri_imgs),
+           n_clients * ids)
+    _write(os.path.join(root, "local_gallery_%d" % (n_clients * ids)), "test",
+           np.concatenate(train), np.repeat(np.arange(n_clients * ids), imgs_per_id),
            n_clients * ids)
 
 
@@ -542,9 +583,10 @@ def write_round_data(root: str, n_clients: int, ids: int, size: int) -> None:
 def round_args(root: str, n_clients: int, ids: int, device: str = "cuda",
                network: str = "sphnet", embedding: int = 512,
                image_size: int = 112, batch: int = 256, local_epochs: int = 2,
-               rounds: int = 2, eval_batch: int = 512) -> list:
+               rounds: int = 2, eval_batch: int = 512, out_name: str = "run") -> list:
     """The training CLI's argv for the smoke's rounds: run.sh's federated
-    flags, at the reference widths unless asked otherwise."""
+    flags, at the reference widths unless asked otherwise, writing to
+    ``<root>/<out_name>``."""
     return [
         "--network", network, "--embedding_size", str(embedding),
         "--image_size", str(image_size), "--com_batch_size", str(batch),
@@ -554,10 +596,37 @@ def round_args(root: str, n_clients: int, ids: int, device: str = "cuda",
         "--HN_threshold", str(THRESHOLD), "--num_workers", "6",
         "--rec_root", root, "--val_root", os.path.join(root, "val"),
         "--local_rec", os.path.join(root, "local_veri_%d" % (n_clients * ids)),
-        "--output_dir", os.path.join(root, "run"), "--device", device,
+        "--output_dir", os.path.join(root, out_name), "--device", device,
         "--add_pretrained_data", "--combine_dataset", "--contrastive_bb",
         "--return_all", "--BCE_local", "--adaptive_local_epoch",
     ]
+
+
+def write_pretrained_root(pre: str, network: str, embedding: int,
+                          image_size: int, pub_ids: int, pub_imgs: int,
+                          seed: int) -> None:
+    """The pretraining outputs a run starts from (``--pretrained_root``),
+    written by the port: a seeded ``network`` state_dict in the reference
+    key layout as ``backbone.pth``, an ``fc.pth`` of N(0, 1) rows over the
+    public IDs and ``preCos_pretrain_labels.pth``, the public set's labels
+    as ``write_fl_split`` writes them."""
+    os.makedirs(pre, exist_ok=True)
+    gen = torch.Generator().manual_seed(seed)
+    net = build_backbone(network, embedding, image_size=image_size, generator=gen)
+    torch.save(net.state_dict(), os.path.join(pre, "backbone.pth"))
+    torch.save(torch.randn(pub_ids, embedding, generator=gen),
+               os.path.join(pre, "fc.pth"))
+    torch.save(torch.from_numpy(np.repeat(np.arange(pub_ids), pub_imgs)),
+               os.path.join(pre, "preCos_pretrain_labels.pth"))
+
+
+def pretrained_args(root: str, n_clients: int, ids: int, pre: str,
+                    **round_kw) -> list:
+    """One round from ``pre`` with the BottleBlock converter: run.sh's own
+    flags (``--pretrained_root``, ``--fedface``) on ``round_args``."""
+    return round_args(root, n_clients, ids, rounds=1, out_name="run_pretrained",
+                      **round_kw) + ["--pretrained_root", pre,
+                                     "--converter_layer", "2", "--fedface"]
 
 
 def device_breakdown(prof, wall_s: float, top: int = 8) -> None:
@@ -618,9 +687,10 @@ def check_exports(out_dir: str, rounds: int, candidates: list) -> None:
                                           recursive=True)))
 
 
-def phase_round(argv: list) -> dict:
+def phase_round(argv: list, profile: bool = True) -> dict:
     """The training CLI's rounds (its setup, run_round and finish, as its
-    main runs them); returns the kernel launches counted over the rounds."""
+    main runs them), the last one profiled if ``profile``; returns the
+    kernel launches counted over the rounds."""
     args = train_cli.build_parser().parse_args(argv)
     t0 = time.perf_counter()
     run = train_cli.setup(args)
@@ -638,15 +708,19 @@ def phase_round(argv: list) -> dict:
     roc_hist_mod.roc_hist_launches = 0
     while not run.done:
         last = server.global_round == cfg.fed.total_rounds - 1
-        profiling = last and cfg.runtime.device == "cuda"
+        profiling = profile and last and cfg.runtime.device == "cuda"
         prof = (torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
             if profiling else contextlib.nullcontext())
+        if cfg.runtime.device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         with prof:
             rec = train_cli.run_round(run)
             sync()
         seconds = time.perf_counter() - t
+        peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.2f}"
+                if cfg.runtime.device == "cuda" else "not measured")
         if profiling:
             device_breakdown(prof, seconds)
         clients = [server.clients[c] for c in rec["clients"]]
@@ -654,7 +728,8 @@ def phase_round(argv: list) -> dict:
             train_s=f"{rec['train_round_s'] - rec['local_eval_s']:.3f}",
             eval_s=f"{rec['local_eval_s'] + rec['bin_eval_s']:.3f}",
             local_eval_s=f"{rec['local_eval_s']:.3f}",
-            bin_eval_s=f"{rec['bin_eval_s']:.3f}", local_epochs=server.local_epoch,
+            bin_eval_s=f"{rec['bin_eval_s']:.3f}", peak_memory_gib=peak,
+            local_epochs=server.local_epoch,
             avg_loss=rec["avg_loss"], acc=rec["acc"],
             losses=[c.last_loss for c in clients],
             mined=[c.mined for c in clients],
@@ -688,6 +763,87 @@ def phase_round(argv: list) -> dict:
     return launches
 
 
+def phase_pretrained(argv: list) -> dict:
+    """One round from a pretrained root through the training CLI
+    (``phase_round`` with its checks, unprofiled), then the three "loaded
+    ..." lines of the JAX package's Server in training.log; returns the
+    kernel launches counted over the round."""
+    launches = phase_round(argv, profile=False)
+    out = argv[argv.index("--output_dir") + 1]
+    pre = argv[argv.index("--pretrained_root") + 1]
+    with open(os.path.join(out, "training.log")) as f:
+        text = f.read()
+    want = ["loaded pretrained backbone from " + os.path.join(pre, "backbone.pth"),
+            "loaded pretrain labels (", "loaded pretrained perfect FC ("]
+    missing = [w for w in want if w not in text]
+    if missing or "train from scratch" in text:
+        raise AssertionError(f"training.log lacks {missing} or trained from scratch")
+    log("pretrained", loaded=[line.split("-", 1)[-1] for line in text.splitlines()
+                              if "loaded pretrain" in line])
+    return launches
+
+
+def check_local_all_log(path: str, n_clients: int) -> None:
+    """<ckpt_path>/local_log.txt after the three calls of phase_local_all:
+    per-client 1:1 lines and their mean, the 1:n block, then the single
+    backbone's 1:1 block, each line in the format parse_log.py and the
+    repository's local_all.py use."""
+    per_client = [LOCAL_LOG_PATTERNS[0], LOCAL_LOG_PATTERNS[1]] * n_clients
+    want = (per_client + list(MEAN_PATTERNS) + list(ONE_TO_N_PATTERNS)
+            + [SINGLE_PATTERN] + per_client + list(MEAN_PATTERNS))
+    with open(path) as f:
+        lines = f.read().splitlines()
+    if len(lines) != len(want):
+        raise AssertionError(f"{path}: {len(lines)} lines, expected {len(want)}")
+    for k, (line, pattern) in enumerate(zip(lines, want)):
+        if not pattern.match(line):
+            raise AssertionError(f"{path}:{k + 1} does not parse: {line!r}")
+    log("local_all", local_log=path, lines=len(lines))
+
+
+def phase_local_all(out_dir: str, data_root: str, n_clients: int, ids: int,
+                    network: str, embedding: int, converter_layer: int,
+                    device: str = "cuda", batch: int = 512) -> dict:
+    """The post-training eval CLI (``fedfr_tpu_torch.local_all``) on a
+    training run's exports: per-client backbones and converters for 1:1
+    (one ROC launch per client) and 1:n (against local_gallery_<N>, no ROC
+    launch), then the round-0 global backbone for 1:1 (one ROC launch per
+    client).  Kernel launch counts are set to 0 just before and read just
+    after; returns them."""
+    n = n_clients * ids
+    base = ["--ckpt_path", out_dir,
+            "--data_dir", os.path.join(data_root, f"local_veri_{n}"),
+            "--gallery_data_dir", os.path.join(data_root, f"local_gallery_{n}"),
+            "--num_client", str(n_clients), "--num_ids", str(n),
+            "--network", network, "--embedding_size", str(embedding),
+            "--converter_layer", str(converter_layer), "--batch_size", str(batch),
+            "--device", device]
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    max_sim_mod.max_sim_launches = 0
+    roc_hist_mod.roc_hist_launches = 0
+    for backbone, task, epoch in (("multi", "1:1", -1), ("multi", "1:n", -1),
+                                  ("single", "1:1", 0)):
+        before = roc_hist_mod.roc_hist_launches
+        t0 = time.perf_counter()
+        res = local_all_cli.main(local_all_cli.build_parser().parse_args(
+            base + ["--backbone", backbone, "--task", task, "--epoch", str(epoch)]))
+        sync()
+        seconds = time.perf_counter() - t0
+        launched = roc_hist_mod.roc_hist_launches - before
+        expected = n_clients if task == "1:1" else 0
+        log("local_all", backbone=backbone, task=task, epoch=epoch,
+            seconds=f"{seconds:.2f}", roc_launches=launched, mean=res["mean"])
+        if device == "cuda" and launched != expected:
+            raise AssertionError(f"local_all {backbone} {task}: {launched} ROC "
+                                 f"launches, expected {expected}")
+        if not all(math.isfinite(v) for v in res["mean"]):
+            raise AssertionError(f"local_all {backbone} {task}: mean {res['mean']}")
+    launches = {"max_sim": max_sim_mod.max_sim_launches,
+                "roc_hist": roc_hist_mod.roc_hist_launches}
+    check_local_all_log(os.path.join(out_dir, "local_log.txt"), n_clients)
+    return launches
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -697,9 +853,19 @@ def main() -> None:
         t0 = time.perf_counter()
         write_round_data(root, n_clients=2, ids=100, size=112)
         log("round", data_written_s=f"{time.perf_counter() - t0:.2f}")
-        launches = phase_round(round_args(root, n_clients=2, ids=100))
-    mining["launches"] = launches["max_sim"]
-    roc["launches"] = launches["roc_hist"]
+        by_phase = {"round": phase_round(round_args(root, n_clients=2, ids=100))}
+        pre = os.path.join(root, "pretrain_iresnet100")
+        write_pretrained_root(pre, "iresnet100", 512, 112, pub_ids=2000,
+                              pub_imgs=2, seed=100)
+        argv = pretrained_args(root, 2, 100, pre, network="iresnet100")
+        by_phase["pretrained_iresnet"] = phase_pretrained(argv)
+        by_phase["local_all"] = phase_local_all(
+            argv[argv.index("--output_dir") + 1], root, 2, 100, "iresnet100", 512,
+            converter_layer=2)
+    for record in (mining, roc):
+        counts = {k: v[record["name"]] for k, v in by_phase.items()}
+        record["launches"] = sum(counts.values())
+        record["launches_by_phase"] = counts
     print(smi, flush=True)
     print(json.dumps({"kernels": [mining, roc]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -44,6 +44,36 @@ def _flip_seed(seed: int, round_seed: int, cid: int) -> int:
     return (seed * 1_000_003 + round_seed) * 1_000_003 + cid + 7
 
 
+def _dropout_seed(seed: int, round_seed: int, cid: int) -> int:
+    """Per-(round, client) seed of the dropout generator (a stream apart
+    from the flip's)."""
+    return _flip_seed(seed, round_seed, cid) + 500_009
+
+
+def warn_if_collapsed(cfg: FedFRConfig, cid: int, cos_trace, fc_rows: int) -> bool:
+    """The collapsed-feature diagnostic of the JAX client
+    (``fedfr_tpu/federated/client.py:359-376``): with every pair cosine
+    equal (e.g. an exploded pretrained backbone), the CosFace CE pins at
+    s*m + log(C-1) and its gradient cancels, so the run learns nothing.
+    ``cos_trace`` is the running mean of the CosFace term after each local
+    epoch, from the sums the loop already fetches.  Logs the warning and
+    returns True when the trace is flat at that value."""
+    if not (cfg.loss.loss == "CosFace" and len(cos_trace) >= 2
+            and abs(cos_trace[-1] - cos_trace[0]) < 1e-3):
+        return False
+    sat = (cfg.loss.margin_s * cfg.loss.margin_m
+           + float(np.log(max(int(fc_rows) - 1, 1))))
+    if abs(cos_trace[-1] - sat) >= 0.1:
+        return False
+    logger.warning(
+        "client %d: cos loss pinned at the all-equal-cosine "
+        "saturation value %.3f for %d epochs — features look "
+        "collapsed; check the pretrained backbone (feature-norm "
+        "explosion upstream, e.g. too-high pretrain lr)",
+        cid, sat, len(cos_trace))
+    return True
+
+
 def _detached(module: nn.Module) -> StateDict:
     return {k: v.detach().clone() for k, v in module.state_dict().items()}
 
@@ -243,16 +273,20 @@ class Client:
                 num_local=self.num_classes, num_clients=cfg.data.num_clients,
                 fedprox_mu=cfg.fed.fedprox_mu)
 
-        gen = None
+        gen = dropout_gen = None
         if self.flip_fn is None:
             gen = torch.Generator(device=self.device).manual_seed(
                 _flip_seed(cfg.runtime.seed, round_seed, self.cid))
+        if cfg.model.dropout > 0:
+            dropout_gen = torch.Generator(device=self.device).manual_seed(
+                _dropout_seed(cfg.runtime.seed, round_seed, self.cid))
         # the loss sums stay on the device: one host sync per epoch; the
         # reported loss is the mean over every step of the run (reference
         # AverageMeter semantics, client.py:349-352,404)
         acc = torch.zeros(4, device=self.device)
         n_steps = 0
         sums = np.zeros(4, np.float32)  # stays zero if local_epochs == 0
+        cos_trace = []
         try:
             for epoch in range(local_epochs):
                 lr = step_lr(cfg.optim.lr, epoch, train_decay, cfg.optim.lr_gamma)
@@ -261,7 +295,8 @@ class Client:
                 for imgs, labels, valid in loader.epoch():
                     flip = self._flip(n_steps, imgs, gen)
                     state, metrics = step_fn(state, global_net, last_net, imgs,
-                                             labels, valid, lr, flip)
+                                             labels, valid, lr, flip,
+                                             dropout_gen=dropout_gen)
                     acc += torch.stack(metrics)
                     n_steps += 1
                     epoch_steps += 1
@@ -269,12 +304,14 @@ class Client:
                 speed = (epoch_steps * cfg.data.combined_batch_size
                          / max(time.perf_counter() - tic, 1e-9))
                 mean = sums / max(n_steps, 1)
+                cos_trace.append(float(mean[1]))
                 logger.info("client %d epoch %d/%d lr %.5f loss %.3f "
                             "(cos %.3f bce %.3f con %.3f) %.1f samples/sec",
                             self.cid, epoch + 1, local_epochs, lr,
                             mean[0], mean[1], mean[2], mean[3], speed)
         finally:
             base_loader.close()  # even on a mid-run failure
+        warn_if_collapsed(cfg, self.cid, cos_trace, state.fc.shape[0])
         self.finalize_local_run(state, sums[0] / max(n_steps, 1))
         return {"loss": self.last_loss, "steps": n_steps,
                 "dataset_size": self.dataset_size}

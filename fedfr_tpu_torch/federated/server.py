@@ -13,11 +13,20 @@ after each candidate client's local run, plus once per candidate before
 its first run with ``epoch=-1`` and the global model's state (the
 pretrain baseline).  ``fedfr_tpu_torch/train.py`` builds both.
 
+With ``runtime.pretrained_root`` it starts from the pretraining outputs
+there, as the JAX ``Server`` does (server.py:58-76,125-172): the global
+backbone from ``backbone.pth`` (a reference-layout state_dict) or
+``backbone.npz`` (a JAX variable tree), the public labels from
+``preCos_pretrain_labels.pth``, the global FC from ``fc.pth`` unless
+``fed.init_fc`` asks for the mean-embedding init, and with ``fed.init_fc``
+the clients' local FCs from the ``preCos_init_AN.pth`` cache (every
+client's rows stacked in client order).  A missing file falls back to what
+the JAX ``Server`` does without it.
+
 Not ported yet (ROADMAP queue A): the client-parallel and lockstep rounds,
 SpreadOut, FC-row mining, the cached contrastive step, the plain (no public
-data) objective, pretrained weights from ``pretrained_root``, and the
-resume state.  The config switches of those paths raise here instead of
-being ignored.
+data) objective and the resume state.  The config switches of those paths
+raise here instead of being ignored.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from ..config import FedFRConfig
 from ..data.datasets import AllClientData
 from ..models import BCEModule, build_backbone
 from ..parallel.fedavg import fedavg_on_fc, streaming_weighted_average
+from ..utils.checkpoint import load_backbone_state, load_pth
 from ..utils.device import resolve_device
 from .client import Client
 from .embed import class_mean_features, embed_dataset
@@ -48,14 +58,11 @@ def _host_state(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 def _check_ported(cfg: FedFRConfig) -> None:
     unported = {
-        "runtime.pretrained_root (loading pretrained .pth weights)":
-            bool(cfg.runtime.pretrained_root),
         "fed.add_pretrained_data=False (the plain objective)":
             not cfg.fed.add_pretrained_data,
         "fed.spreadout": cfg.fed.spreadout,
         "fed.hn_strategy='fc' (FC-row mining)": cfg.fed.hn_strategy == "fc",
         "fed.cache_contrastive": cfg.fed.cache_contrastive,
-        "model.freeze_bn": cfg.model.freeze_bn,
     }
     bad = [name for name, on in unported.items() if on]
     if bad:
@@ -80,9 +87,16 @@ class Server:
         # "global" term read it; aggregation writes it
         net = build_backbone(cfg.model.network, cfg.model.embedding_size,
                              cfg.model.bf16, cfg.data.image_size,
-                             generator=torch.Generator().manual_seed(cfg.runtime.seed))
+                             generator=torch.Generator().manual_seed(cfg.runtime.seed),
+                             dropout=cfg.model.dropout,
+                             freeze_bn=cfg.model.freeze_bn)
+        path = self._pretrained("backbone.pth") or self._pretrained("backbone.npz")
+        if path:
+            net.load_state_dict(load_backbone_state(cfg.model.network, path))
+            logger.info("loaded pretrained backbone from %s", path)
+        else:
+            logger.info("train from scratch")
         self.global_net = net.to(self.device).eval().requires_grad_(False)
-        logger.info("train from scratch")
         # work modules every client's local run loads its weights into
         self.backbone = copy.deepcopy(self.global_net).requires_grad_(True)
         self.last_net = copy.deepcopy(self.global_net)
@@ -120,6 +134,12 @@ class Server:
                 c.init_bce_from_fc()
         self._branch_step = None
 
+    def _pretrained(self, name: str) -> str:
+        """``<pretrained_root>/<name>`` if there is such a file, else ''."""
+        root = self.cfg.runtime.pretrained_root
+        path = os.path.join(root, name) if root else ""
+        return path if path and os.path.exists(path) else ""
+
     def _embed(self, dataset, batch_size: int, l2norm: bool):
         return embed_dataset(self.global_net, dataset, batch_size,
                              l2norm=l2norm, device=self.device,
@@ -129,9 +149,22 @@ class Server:
     # ------------------------------------------------------------- FC init
 
     def _init_pretrain_fc(self) -> None:
-        """Mean-embedding init of the global FC over the public set
+        """The public labels and the global FC: from ``pretrained_root``
+        where it has them (``fc.pth`` only without ``fed.init_fc``), else
+        the public set's labels and the mean-embedding init over it
         (server.py:182-240)."""
-        self.pretrained_labels = self.data.public_dataset.all_labels().astype(np.int64)
+        path = self._pretrained("preCos_pretrain_labels.pth")
+        if path:
+            self.pretrained_labels = load_pth(path).numpy().astype(np.int64)
+            logger.info("loaded pretrain labels %s", self.pretrained_labels.shape)
+        else:
+            self.pretrained_labels = self.data.public_dataset.all_labels().astype(np.int64)
+        path = self._pretrained("fc.pth")
+        if path and not self.cfg.fed.init_fc:
+            self.pretrained_fc = load_pth(path).float().to(self.device)
+            logger.info("loaded pretrained perfect FC %s",
+                        tuple(self.pretrained_fc.shape))
+            return
         feats, labels = self._embed(self.data.public_dataset,
                                     self.cfg.data.public_batch_size, l2norm=False)
         self.pretrained_fc = class_mean_features(feats, labels,
@@ -139,7 +172,18 @@ class Server:
         logger.info("generated pretrain FC %s", tuple(self.pretrained_fc.shape))
 
     def initialize_local_fcs(self) -> None:
-        """Mean-embedding init of every client's local FC (server.py:157-180)."""
+        """Every client's local FC (server.py:157-180): the rows of the
+        ``preCos_init_AN.pth`` cache in ``pretrained_root``, split across
+        the clients in order, or else the mean-embedding init."""
+        path = self._pretrained("preCos_init_AN.pth")
+        if path:
+            init = load_pth(path).float()
+            logger.info("preload clients FC init %s", tuple(init.shape))
+            start = 0
+            for c in self.clients:
+                c.fc_local = init[start:start + c.num_classes].to(self.device)
+                start += c.num_classes
+            return
         for c in self.clients:
             c.init_fc_from_means(self.global_net)
             logger.info("client %d FC initialized", c.cid)

@@ -12,7 +12,11 @@ with one SGD(momentum 0.9, wd 5e-4) over backbone + FC + BCE, and the
 backbone's BatchNorm statistics updated by its train-mode forward.
 
 Randomness is explicit: the step takes the augmentation flip mask as an
-argument, where the JAX step draws it inside from its key.
+argument, where the JAX step draws it inside from its key, and iresnet's
+dropout draws from a ``torch.Generator`` the caller passes, where the JAX
+step folds a separate dropout key (``fold_in(base, 1)``).  ``freeze_bn``
+lives on the module (``IResNet.train`` keeps its BN layers in eval mode),
+as it does in the JAX package, so the step needs no flag for it.
 """
 
 from __future__ import annotations
@@ -46,10 +50,12 @@ def make_branch_train_step(*, margin: str = "CosFace", s: float = 30.0,
     """Train step for the joint local+public objective with the BCE branch.
 
     Returns ``step(state, global_net, last_net, images_u8, labels, valid, lr,
-    flip) -> (state, StepMetrics)``.  ``state`` is updated in place;
-    ``global_net`` and ``last_net`` are frozen modules in eval mode;
-    ``images_u8`` is the NHWC uint8 batch on the device and ``flip`` its (B,)
-    bool flip mask.  The metrics are detached device scalars.
+    flip, dropout_gen=None) -> (state, StepMetrics)``.  ``state`` is updated
+    in place; ``global_net`` and ``last_net`` are frozen modules in eval
+    mode; ``images_u8`` is the NHWC uint8 batch on the device and ``flip``
+    its (B,) bool flip mask; ``dropout_gen`` feeds the trainable forward's
+    dropout (iresnet with ``dropout > 0``; other nets take none).  The
+    metrics are detached device scalars.
 
     ``fedprox_mu`` > 0 adds mu/2 * ||w - w_global||^2 over the backbone
     parameters, as the JAX step does.
@@ -59,11 +65,13 @@ def make_branch_train_step(*, margin: str = "CosFace", s: float = 30.0,
     def step(state: ClientTrainState, global_net: Optional[nn.Module],
              last_net: Optional[nn.Module], images_u8: torch.Tensor,
              labels: torch.Tensor, valid: torch.Tensor, lr: float,
-             flip: torch.Tensor):
+             flip: torch.Tensor,
+             dropout_gen: Optional[torch.Generator] = None):
         x = train_preprocess(flip, images_u8)
         labels = labels.long()
         state.backbone.train()
-        feats = state.backbone(x)
+        feats = (state.backbone(x) if dropout_gen is None
+                 else state.backbone(x, dropout_gen=dropout_gen))
 
         cos = cosine_logits(feats, state.fc)
         logits = margin_fn(cos, labels, s, m)

@@ -9,7 +9,7 @@ layout the port's modules use.  The port's own counterpart of
 Layout conversions:
 * conv kernels: HWIO -> OIHW
 * dense kernels: (in, out) -> (out, in)
-* the flatten boundary before sphnet's embedding fc: the NHWC package
+* the flatten boundary before the embedding fc: the NHWC package
   flattens (h*W*C + w*C + c), the port flattens NCHW (c*H*W + h*W + w), so
   the fc kernel's input axis is permuted.
 * BatchNorm: scale/bias + mean/var -> weight/bias + running_mean/running_var.
@@ -23,6 +23,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from .models.iresnet import IRES_FILTERS, IRES_LAYERS
 from .models.sphnet import SPH_LAYERS
 
 Tree = Dict[str, Any]
@@ -87,6 +88,66 @@ def sphnet_state_dict(variables: Tree, depth: int = 64) -> StateDict:
     return sd
 
 
+def _unscan_iresnet(variables: Tree, depth: int) -> Tree:
+    """scan_blocks layout (each stage's blocks after the first stacked on
+    axis 0, in ``params`` and ``batch_stats`` alike) -> unrolled variables."""
+    def unstack(tree, i):
+        if isinstance(tree, dict):
+            return {k: unstack(v, i) for k, v in tree.items()}
+        return np.asarray(tree)[i]
+
+    out = {}
+    for coll, src in variables.items():
+        dst = {k: v for k, v in src.items() if not k.endswith("_blocks")}
+        for stage, blocks in enumerate(IRES_LAYERS[depth], start=1):
+            if blocks > 1:
+                stacked = src[f"layer{stage}_blocks"]["block"]
+                for b in range(1, blocks):
+                    dst[f"layer{stage}_block{b}"] = unstack(stacked, b - 1)
+        out[coll] = dst
+    return out
+
+
+def iresnet_state_dict(variables: Tree, depth: int) -> StateDict:
+    """JAX ``IResNet`` variables (plain or ``scan_blocks``) -> the port's
+    ``IResNet`` state_dict (the BN1d ``features`` scale, which the JAX
+    module does not have, is 1)."""
+    if any(k.endswith("_blocks") for k in variables["params"]):
+        variables = _unscan_iresnet(variables, depth)
+    p, st = variables["params"], variables["batch_stats"]
+    sd: StateDict = {}
+
+    def bn(key, bp, bs):
+        sd[f"{key}.weight"] = _t(bp["scale"])
+        sd[f"{key}.bias"] = _t(bp["bias"])
+        sd[f"{key}.running_mean"] = _t(bs["mean"])
+        sd[f"{key}.running_var"] = _t(bs["var"])
+        sd[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+    sd["conv1.weight"] = _conv(p["conv1"]["kernel"])
+    bn("bn1", p["bn1"], st["bn1"])
+    sd["prelu.weight"] = _t(p["prelu"]["alpha"])
+    for stage, blocks in enumerate(IRES_LAYERS[depth], start=1):
+        for b in range(blocks):
+            name, tb = f"layer{stage}_block{b}", f"layer{stage}.{b}"
+            bp, bs = p[name], st[name]
+            bn(f"{tb}.bn1", bp["bn1"], bs["bn1"])
+            sd[f"{tb}.conv1.weight"] = _conv(bp["conv1"]["kernel"])
+            bn(f"{tb}.bn2", bp["bn2"], bs["bn2"])
+            sd[f"{tb}.prelu.weight"] = _t(bp["prelu"]["alpha"])
+            sd[f"{tb}.conv2.weight"] = _conv(bp["conv2"]["kernel"])
+            bn(f"{tb}.bn3", bp["bn3"], bs["bn3"])
+            if b == 0:  # every stage's head block is strided
+                sd[f"{tb}.downsample.0.weight"] = _conv(bp["ds_conv"]["kernel"])
+                bn(f"{tb}.downsample.1", bp["ds_bn"], bs["ds_bn"])
+    bn("bn2", p["bn2"], st["bn2"])
+    sd["fc.weight"] = _dense_flat(p["fc"]["kernel"], IRES_FILTERS[-1])
+    sd["fc.bias"] = _t(p["fc"]["bias"])
+    bn("features", {"scale": np.ones_like(p["features"]["bias"]),
+                    "bias": p["features"]["bias"]}, st["features"])
+    return sd
+
+
 def toy_state_dict(variables: Tree) -> StateDict:
     """JAX ``ToyNet`` variables -> the port's ``ToyNet`` state_dict."""
     p, st = variables["params"], variables["batch_stats"]
@@ -108,17 +169,28 @@ def backbone_state_dict(network: str, variables: Tree) -> StateDict:
         return toy_state_dict(variables)
     if network in ("sphnet", "sphnet20"):
         return sphnet_state_dict(variables, 20 if network == "sphnet20" else 64)
-    raise NotImplementedError(f"no interop for '{network}' yet")
+    if network.startswith("iresnet"):
+        return iresnet_state_dict(variables, int(network[len("iresnet"):]))
+    raise ValueError(f"unknown backbone '{network}'")
 
 
 def bce_state_dict(variables: Tree) -> StateDict:
-    """JAX ``BCEModule`` variables (Linear converter) -> the port's
-    ``BCEModule`` state_dict."""
+    """JAX ``BCEModule`` variables (Linear or BottleBlock converter) -> the
+    port's ``BCEModule`` state_dict."""
     p = variables["params"]
-    dense = p["converter"]["dense"]
-    return {"weight": _t(p["weight"]), "bias": _t(p["bias"]),
-            "converter.0.weight": _dense(dense["kernel"]),
-            "converter.0.bias": _t(dense["bias"])}
+    sd = {"weight": _t(p["weight"]), "bias": _t(p["bias"])}
+    conv = p["converter"]
+    if "dense" in conv:  # the Linear converter
+        sd["converter.0.weight"] = _dense(conv["dense"]["kernel"])
+        sd["converter.0.bias"] = _t(conv["dense"]["bias"])
+        return sd
+    for i in range(1, 5):
+        for j, sub in ((0, "dense1"), (2, "dense2")):
+            sd[f"converter.br{i}.{j}.weight"] = _dense(conv[f"br{i}_{sub}"]["kernel"])
+            sd[f"converter.br{i}.{j}.bias"] = _t(conv[f"br{i}_{sub}"]["bias"])
+    sd["converter.concat_fc.weight"] = _dense(conv["concat_fc"]["kernel"])
+    sd["converter.concat_fc.bias"] = _t(conv["concat_fc"]["bias"])
+    return sd
 
 
 def client_state(network: str, fc_local, bce_vars: Optional[Tree],

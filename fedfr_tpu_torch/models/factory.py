@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .iresnet import IResNet
 from .layers import batch_norm, conv3x3
 from .sphnet import SphNet
 
@@ -31,18 +32,22 @@ class ToyNet(nn.Module):
 
 
 def build_backbone(name: str, embedding_size: int = 512, bf16: bool = True,
-                   image_size: int = 112,
-                   generator: torch.Generator = None) -> nn.Module:
-    """``toy``, ``sphnet`` (sphere64) or ``sphnet20`` on the CPU; the caller
-    moves it to its device."""
+                   image_size: int = 112, generator: torch.Generator = None,
+                   dropout: float = 0.0, freeze_bn: bool = False) -> nn.Module:
+    """``toy``, ``sphnet`` (sphere64), ``sphnet20`` or ``iresnet<depth>``
+    (18/34/50/100/200) on the CPU; the caller moves it to its device.
+    ``dropout`` and ``freeze_bn`` are iresnet's (the pre-embedding dropout
+    and BN kept in inference mode while training); the JAX package ignores
+    them for the other nets, and so does the port."""
     if name == "toy":
         return ToyNet(embedding_size=embedding_size)
     if name in ("sphnet", "sphnet20"):
         return SphNet(depth=20 if name == "sphnet20" else 64,
                       embedding_size=embedding_size, bf16=bf16,
                       image_size=image_size, generator=generator)
-    if name.startswith("iresnet"):
-        raise NotImplementedError(
-            f"'{name}' is not ported to the PyTorch package yet (ROADMAP "
-            f"queue A: iresnet, bottle and freeze_bn)")
+    if name.startswith("iresnet") and name[len("iresnet"):].isdigit():
+        return IResNet(depth=int(name[len("iresnet"):]),
+                       embedding_size=embedding_size, dropout=dropout,
+                       bf16=bf16, freeze_bn=freeze_bn, image_size=image_size,
+                       generator=generator)
     raise ValueError(f"unknown backbone '{name}'")

@@ -7,12 +7,14 @@ Counterpart of ``fedfr_tpu/models/heads.py`` (reference client.py:25-113):
   client's train state, because the server concatenates, splits and averages
   it across clients every round.
 * ``BCEModule`` — the personalized "transformation layer" branch
-  (client.py:25-61): an identity-initialized Linear converter, per-class
+  (client.py:25-61): an identity-initialized Linear converter (or, with
+  ``converter_layers != 1``, a ``BottleBlock``), per-class
   cosine logits against its own weight matrix, a polynomial hardness
   transform g(x) = 2*((x+1)/2)^t - 1, and +/- margins scaled by r.  Labels
   >= n_class collapse to a dropped virtual "other" column, i.e. those rows
   have no positive.  State_dict keys are the reference's (``weight``,
-  ``bias``, ``converter.0.weight``, ``converter.0.bias``).
+  ``bias``, ``converter.0.{weight,bias}`` or the BottleBlock's
+  ``converter.br{i}.{0,2}.*`` and ``converter.concat_fc.*``).
 
 Everything here runs in fp32.
 """
@@ -24,6 +26,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from .bottle import BottleBlock
 from .layers import normal_init
 
 
@@ -58,13 +61,10 @@ class BCEModule(nn.Module):
                  converter_layers: int = 1, m: float = 0.4, r: float = 30.0,
                  t: float = 3.0, generator: torch.Generator = None):
         super().__init__()
-        if converter_layers != 1:
-            raise NotImplementedError(
-                "the BottleBlock converter (converter_layers > 1) is not "
-                "ported yet (ROADMAP queue A)")
         self.n_class = n_class
         self.m, self.r, self.t = m, r, t
-        self.converter = LinearConverter(hidden)
+        self.converter = (LinearConverter(hidden) if converter_layers == 1
+                          else BottleBlock(hidden, 4, generator=generator))
         self.weight = nn.Parameter(torch.empty(n_class, hidden))
         self.bias = nn.Parameter(torch.zeros(n_class))
         normal_init(self.weight, 0.01, generator)

@@ -8,6 +8,8 @@ estimate), so the port uses ``nn.BatchNorm2d`` as it is.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -43,6 +45,15 @@ def normal_init(tensor: torch.Tensor, stddev: float,
                 generator: torch.Generator = None) -> torch.Tensor:
     with torch.no_grad():
         return tensor.normal_(0.0, stddev, generator=generator)
+
+
+def lecun_normal(tensor: torch.Tensor,
+                 generator: torch.Generator = None) -> torch.Tensor:
+    """flax's default Dense kernel init for a torch ``(out, in)`` weight: a
+    normal truncated at 2 sigma, rescaled to variance 1 / in."""
+    std = math.sqrt(1.0 / tensor.shape[1]) / 0.87962566103423978
+    return nn.init.trunc_normal_(tensor, std=std, a=-2.0 * std, b=2.0 * std,
+                                 generator=generator)
 
 
 def xavier_uniform(tensor: torch.Tensor,

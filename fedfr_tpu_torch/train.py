@@ -3,15 +3,15 @@
 The counterpart of the repository's ``train.py``: the same flags, the same
 config, and the same round loop (sample, ``train_round``, ``test``, exports,
 ``advance_round``), with the ``.bin`` verification and the per-client 1:1
-eval attached as that CLI attaches them.  run.sh-equivalent:
+eval attached as that CLI attaches them.  run.sh's own command line:
 
-    python -m fedfr_tpu_torch.train --network sphnet \\
-        --output_dir ./ckpt/FedFR --loss CosFace --batch_size 64 \\
-        --num_client 40 --client_sampled_ratio 1.0 --lr 0.001 \\
-        --total_round 20 --local_epoch 10 --rec_root DATA --val_root VAL \\
-        --local_rec DATA/local_veri_4000 --add_pretrained_data \\
-        --combine_dataset --contrastive_bb --return_all --BCE_local \\
-        --adaptive_local_epoch
+    python -m fedfr_tpu_torch.train --pretrained_root './pretrain' \
+        --network 'sphnet' --output_dir './ckpt/FedFR' --loss 'CosFace' \
+        --batch_size 64 --num_client 40 --client_sampled_ratio 1.0 \
+        --lr 0.001 --total_round 20 --local_epoch 10 --rec_root DATA \
+        --val_root VAL --local_rec DATA/local_veri_4000 --fedface \
+        --add_pretrained_data --combine_dataset --contrastive_bb \
+        --return_all --BCE_local --adaptive_local_epoch
 
 It runs on the GPU (``--device cuda``, the default, raising without one);
 ``--device cpu`` runs it on the CPU with the kernels' plain versions.
@@ -22,9 +22,10 @@ Exports are PyTorch's own: ``backbone_<round>.pth`` (at the
 ``clients/client_<c>/{backbone,bce_module}.pth`` (at the
 ``--client_ckpt_every`` cadence, and once at the end if the cadence missed
 the final round), each a ``torch.save`` of a state_dict in the reference
-key layout.  The resume state is not written: ``--resume`` and the flags
-that shape it raise, as do the other flags of paths not ported yet, each
-naming its ROADMAP item.
+key layout.  A copy of the source goes to ``<output_dir>/code`` at setup.
+The resume state is not written: ``--resume`` and the flags that shape it
+raise, as do the other flags of paths not ported yet, each naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from .evalsuite.verification import BinVerificationCallback
 from .federated.server import Server
 from .utils.device import resolve_device
 from .utils.logging import init_logging
+from .utils.snapshot import snapshot_source
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -64,7 +66,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_ids", default=4000, type=int)
     p.add_argument("--client_sampled_ratio", default=1.0, type=float)
     p.add_argument("--pretrained_root", default="",
-                   help="not ported: raises (ROADMAP queue A item 10)")
+                   help="pretraining outputs: backbone.pth/.npz, fc.pth, "
+                        "preCos_pretrain_labels.pth, preCos_init_AN.pth")
     p.add_argument("--lr", type=float, default=0.1)
     p.add_argument("--aggr_alg", default="FedAvg")
     p.add_argument("--spreadout", action="store_true",
@@ -111,13 +114,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--remat", action="store_true",
                    help="not ported: raises (ROADMAP queue A item 13)")
     p.add_argument("--freeze_bn", action="store_true",
-                   help="not ported: raises (ROADMAP queue A item 4)")
+                   help="iresnet: BatchNorm in inference mode while training")
     p.add_argument("--dropout", type=float, default=0.0,
                    help="backbone dropout before the embedding fc (iresnet "
                         "only, as in the JAX package)")
     p.add_argument("--converter_layer", type=int, default=1,
-                   help="BCE transformation layer: 1=linear; the "
-                        "BottleBlock is not ported (ROADMAP queue A item 4)")
+                   help="BCE transformation layer: 1=linear, else BottleBlock")
     p.add_argument("--device_cache", action="store_true",
                    help="no effect here: the port keeps every state on "
                         "the device")
@@ -310,6 +312,7 @@ def setup(args) -> Training:
     os.makedirs(cfg.runtime.output_dir, exist_ok=True)
     logger = init_logging(cfg.runtime.output_dir)
     logger.info("config: %s", cfg.to_json())
+    snapshot_source(cfg.runtime.output_dir)  # reference train.py:50-51
     logger.info("the resume state is not written by the PyTorch package "
                 "(ROADMAP queue A item 12): a stopped run starts again from "
                 "round 0")

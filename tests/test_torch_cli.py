@@ -8,7 +8,9 @@
 * two toy rounds through ``main`` on data written by chip_smoke.py's own
   writers: local_log.txt as parse_log.py reads it (the epoch -1 baseline,
   then one entry per round), the .bin accuracy, training.log and the .pth
-  exports; and chip_smoke.py's round phase, rehearsed on the CPU.
+  exports; a round whose argv carries run.sh's ``--pretrained_root`` and
+  ``--fedface``, and the source snapshot in ``<output_dir>/code``; and
+  chip_smoke.py's phases, rehearsed on the CPU.
 """
 
 import ast
@@ -160,3 +162,57 @@ def test_chip_smoke_round_phase_rehearsed_on_cpu(smoke_root, tmp_path):
     versions run and no launch is counted."""
     launches = chip_smoke.phase_round(_argv(smoke_root, str(tmp_path / "run")))
     assert launches == {"max_sim": 0, "roc_hist": 0}
+
+
+def test_main_runs_from_pretrained_root_and_snapshots_the_source(smoke_root, tmp_path):
+    """run.sh's --pretrained_root and --fedface: the backbone, FC and labels
+    come from the root (with the JAX package's log texts), and setup copies
+    the source to <output_dir>/code without caches."""
+    pre = str(tmp_path / "pretrain")
+    chip_smoke.write_pretrained_root(pre, "toy", 16, IMG, pub_ids=6, pub_imgs=5,
+                                     seed=3)
+    out = str(tmp_path / "run")
+    argv = _argv(smoke_root, out) + ["--total_round", "1", "--pretrained_root", pre,
+                                     "--fedface"]
+    t = train_cli.setup(train_cli.build_parser().parse_args(argv))
+    sd = torch.load(os.path.join(pre, "backbone.pth"))
+    for k, v in t.server.global_net.state_dict().items():
+        torch.testing.assert_close(v, sd[k], rtol=0, atol=0)
+    torch.testing.assert_close(t.server.pretrained_fc,
+                               torch.load(os.path.join(pre, "fc.pth")), rtol=0, atol=0)
+    while not t.done:
+        assert np.isfinite(train_cli.run_round(t)["avg_loss"])
+    train_cli.finish(t)
+    log = open(os.path.join(out, "training.log")).read()
+    for text in ("loaded pretrained backbone from " + os.path.join(pre, "backbone.pth"),
+                 "loaded pretrain labels (30,)", "loaded pretrained perfect FC (6, 16)"):
+        assert text in log
+    assert "train from scratch" not in log
+    code = os.path.join(out, "code")
+    for f in ("train.py", "chip_smoke.py", "fedfr_tpu_torch/train.py",
+              "fedfr_tpu_torch/csrc/roc_hist.cu", "split_dataset/split_FL.py"):
+        assert os.path.exists(os.path.join(code, f)), f
+    assert not os.path.exists(os.path.join(code, "fedfr_tpu"))
+    for _, dirs, files in os.walk(code):
+        assert "__pycache__" not in dirs and "build" not in dirs
+        assert not [f for f in files if f.endswith((".pyc", ".so"))]
+
+
+def test_chip_smoke_pretrained_and_local_all_phases_rehearsed_on_cpu(smoke_root,
+                                                                     tmp_path):
+    """The smoke's pretrained-root round and its three local_all calls, at
+    toy size on the CPU (iresnet18 with the BottleBlock converter), where
+    the kernels' plain versions run and no launch is counted."""
+    pre = str(tmp_path / "pre")
+    chip_smoke.write_pretrained_root(pre, "iresnet18", 16, IMG, pub_ids=6,
+                                     pub_imgs=5, seed=3)
+    argv = chip_smoke.pretrained_args(smoke_root, CLIENTS, IDS, pre, device="cpu",
+                                      network="iresnet18", embedding=16,
+                                      image_size=IMG, batch=8, local_epochs=1,
+                                      eval_batch=16)
+    argv[argv.index("--output_dir") + 1] = out = str(tmp_path / "run")
+    argv += ["--num_workers", "2", "--lr", "0.01"]
+    assert chip_smoke.phase_pretrained(argv) == {"max_sim": 0, "roc_hist": 0}
+    assert chip_smoke.phase_local_all(out, smoke_root, CLIENTS, IDS, "iresnet18", 16,
+                                      converter_layer=2, device="cpu",
+                                      batch=16) == {"max_sim": 0, "roc_hist": 0}

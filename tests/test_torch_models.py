@@ -16,7 +16,7 @@ from fedfr_tpu.models.factory import ToyNet as JToy
 from fedfr_tpu.utils import torch_interop as ti
 
 from fedfr_tpu_torch import interop
-from fedfr_tpu_torch.models import BCEModule, SphNet, ToyNet, build_backbone
+from fedfr_tpu_torch.models import BCEModule, IResNet, SphNet, ToyNet, build_backbone
 
 
 @pytest.fixture(autouse=True)
@@ -119,7 +119,9 @@ def test_build_backbone_names():
     assert isinstance(build_backbone("toy", 8), ToyNet)
     assert build_backbone("sphnet", 512).depth == 64
     assert build_backbone("sphnet20", 512).depth == 20
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_backbone("iresnet50")
-    with pytest.raises(ValueError):
-        build_backbone("nope")
+    net = build_backbone("iresnet50", 512, dropout=0.2, freeze_bn=True)
+    assert isinstance(net, IResNet)
+    assert (net.depth, net.dropout, net.freeze_bn) == (50, 0.2, True)
+    for name in ("nope", "iresnet", "iresnet19"):
+        with pytest.raises(ValueError):
+            build_backbone(name)
