@@ -65,15 +65,40 @@ Phases, in order (any failure raises and the script exits non-zero):
    three calls and read after, every line of <run>/local_log.txt checked
    against the formats parse_log.py and local_all.py use, and each call's
    seconds.
+7. paths — the sequential round's other paths through the training CLI at
+   sphere64 / E=512 / bf16 trunk / batch 256 on the round phase's data,
+   each part's launch counts set to 0 before its rounds and read after:
+   7a  --cache_contrastive --spreadout, 2 rounds, the clients' FC rows from
+       a pretrained root's FC cache (--pretrained_root, --init_fc) whose
+       pairs lie above SpreadOut's margin: one mining launch
+       per client per round, one ROC launch per candidate per round plus
+       the baselines, finite losses, one cache build per local run, the
+       SpreadOut objective lower after than before in each round; then on
+       one batch of client 0's next local run the cached step against the
+       recompute step from the same state and flip (MOON_TOL), and both
+       forms timed (CUDA events, in turns) with the cache build's seconds.
+   7b  --resume --total_round 3 on 7a's output: the restored state bitwise
+       equal to 7a's last save, "resumed at round 2", one round, its client
+       sample equal to a replay of sample_clients from the saved RNG state;
+       again on a copy of 7a's round states with --round_ckpt_async
+       --round_ckpt_bg_fetch --round_ckpt_keep 1, leaving one complete
+       round state.  Save and restore seconds.
+   7c  --hn_strategy fc, 1 round, the threshold set between two middle
+       per-identity scores of client 0: no mining launch, no public embed,
+       client 0's mined set a strict subset of the public set.
+   7d  the plain objective (no --add_pretrained_data, --batch_size 64), 1
+       round: no mining launch, the candidates' ROC launches, each client's
+       FedAvg weight its own set's size.
 
 The line before the last is a JSON object with every ported kernel (its
-``launches`` summed over phases 4-6, and by phase); the last line is the
-device record.  Widths are the reference's (sphere64 and iresnet100, E=512,
+``launches`` summed over phases 4-7, and by phase, 7a-7d apart); the last
+line is the device record.  Widths are the reference's (sphere64 and iresnet100, E=512,
 112x112, batch 256); counts are cut:
   * 2 clients x 100 IDs x 8 train images (reference: 40 clients x 100 IDs);
   * a 4,000-image public set, 2,000 IDs x 2 (reference: 420,671 images);
   * 2 local epochs, then 4; 2 rounds (reference: 10 epochs, 20 rounds);
-    the iresnet100 round: 2 local epochs, 1 round;
+    the iresnet100 round: 2 local epochs, 1 round; phase 7: 2 local epochs
+    then 4, 2 rounds for 7a, 1 round for each other part;
   * local_veri: 2 clients x 100 IDs x 10 images (reference: 4,000 IDs x 40);
     local_gallery: the 8 train images of each ID;
   * agedb_30.bin: 1,200 pairs (AgeDB-30: 6,000);
@@ -90,6 +115,7 @@ import math
 import os
 import pickle
 import re
+import shutil
 import subprocess
 import tempfile
 import time
@@ -102,9 +128,12 @@ import fedfr_tpu_torch.ops.roc_hist as roc_hist_mod
 from fedfr_tpu_torch import local_all as local_all_cli
 from fedfr_tpu_torch import train as train_cli
 from fedfr_tpu_torch.data import codec, write_split
+from fedfr_tpu_torch.data.pipeline import DevicePrefetcher
+from fedfr_tpu_torch.federated.trainer import branch_step_for, init_client_state
 from fedfr_tpu_torch.models import build_backbone
 from fedfr_tpu_torch.ops._build import build_kernels, build_seconds, ptxas_info
 from fedfr_tpu_torch.ops.roc_histogram import tpr_at_fpr_table
+from fedfr_tpu_torch.utils.checkpoint import RoundCheckpointer
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, fp32
 # operations/s outside the tensor cores, bf16 operations/s on the tensor cores
@@ -620,6 +649,23 @@ def write_pretrained_root(pre: str, network: str, embedding: int,
                os.path.join(pre, "preCos_pretrain_labels.pth"))
 
 
+def write_client_fc_cache(pre: str, rows: int, embedding: int, seed: int) -> None:
+    """A pretrained root holding only the clients' FC cache
+    (``preCos_init_AN.pth``, every client's rows stacked in client order,
+    read under ``--init_fc``): rows u + 0.9 n_i around one shared random
+    direction u, n_i random unit rows, so each pair's cosine is ~0.55 and
+    lies above SpreadOut's 0.4 margin, as the rows of similar identities
+    do.  The root's other files are absent, so the run falls back to the
+    global model's own weights, the public labels and the mean-embedding
+    global FC."""
+    os.makedirs(pre, exist_ok=True)
+    gen = torch.Generator().manual_seed(seed)
+    u = torch.randn(1, embedding, generator=gen)
+    n = torch.randn(rows, embedding, generator=gen)
+    fc = u / u.norm() + 0.9 * n / n.norm(dim=1, keepdim=True)
+    torch.save(fc, os.path.join(pre, "preCos_init_AN.pth"))
+
+
 def pretrained_args(root: str, n_clients: int, ids: int, pre: str,
                     **round_kw) -> list:
     """One round from ``pre`` with the BottleBlock converter: run.sh's own
@@ -844,6 +890,314 @@ def phase_local_all(out_dir: str, data_root: str, n_clients: int, ids: int,
     return launches
 
 
+# ---------------------------------------------------------------- phase 7
+
+# The cached-contrastive step gathers the frozen models' features from
+# caches built at the embedding batch (512); the recompute step runs the
+# same frozen models on the 256-image batch.  With the bf16 trunk cuDNN may
+# pick other algorithms for the two batch shapes, so a feature can differ by
+# a few bf16 roundings: allow delta = 2^-7 (two roundings of 2^-8) on each
+# cosine of the MOON term.  Its sensitivity to a cosine is at most 1/T
+# (T = 0.5), two cosines per sample, so |d con_loss| <= 2 * delta / T = 2^-5;
+# the trainable forward is the same call on the same input, so the total
+# loss moves by mu (5) times that at most.
+MOON_TOL = 2.0 ** -5
+SPREADOUT_RE = re.compile(r"round (\d+) spreadout over (\d+) rows: "
+                          r"objective (\S+) -> (\S+)")
+CACHE_RE = re.compile(r"contrastive caches of (\d+) imgs built in (\S+) s")
+RESTORE_RE = re.compile(r"resumed at round (\d+) \(restore (\S+) s\)")
+
+
+def drive(argv: list, on_setup=None):
+    """The training CLI's setup, rounds and finish (as its main runs them),
+    with both kernels' launch counts set to 0 just before the rounds and
+    read just after; ``on_setup(run)`` runs between setup and the rounds.
+    Returns (run, the rounds' records, launches, the log's text)."""
+    run = train_cli.setup(train_cli.build_parser().parse_args(argv))
+    if on_setup is not None:
+        on_setup(run)
+    sync = torch.cuda.synchronize if run.cfg.runtime.device == "cuda" else (lambda: None)
+    max_sim_mod.max_sim_launches = 0
+    roc_hist_mod.roc_hist_launches = 0
+    history = []
+    while not run.done:
+        t = time.perf_counter()
+        rec = train_cli.run_round(run)
+        sync()
+        rec["seconds"] = time.perf_counter() - t
+        clients = [run.server.clients[c] for c in rec["clients"]]
+        rec["losses"] = [c.last_loss for c in clients]
+        rec["mined"] = [c.mined for c in clients]
+        rec["dataset_sizes"] = [c.dataset_size for c in clients]
+        history.append(rec)
+        if not all(math.isfinite(x) for x in rec["losses"] + [rec["avg_loss"]]):
+            raise AssertionError(f"non-finite loss in round {rec['round']}: {rec['losses']}")
+    launches = {"max_sim": max_sim_mod.max_sim_launches,
+                "roc_hist": roc_hist_mod.roc_hist_launches}
+    t = time.perf_counter()
+    train_cli.finish(run)
+    finish_s = time.perf_counter() - t
+    with open(os.path.join(run.cfg.runtime.output_dir, "training.log")) as f:
+        text = f.read()
+    for rec in history:
+        log("paths", out=os.path.basename(run.cfg.runtime.output_dir),
+            round=rec["round"], seconds=f"{rec['seconds']:.2f}",
+            train_s=f"{rec['train_round_s'] - rec['local_eval_s']:.3f}",
+            local_eval_s=f"{rec['local_eval_s']:.3f}", bin_eval_s=f"{rec['bin_eval_s']:.3f}",
+            ckpt_save_s=rec["ckpt_save_s"], losses=rec["losses"], mined=rec["mined"],
+            dataset_sizes=rec["dataset_sizes"], acc=rec["acc"])
+    log("paths", out=os.path.basename(run.cfg.runtime.output_dir), launches=launches,
+        finish_s=f"{finish_s:.3f}")
+    return run, history, launches, text
+
+
+def expect_launches(run, launches: dict, expected: dict, part: str) -> None:
+    if run.cfg.runtime.device == "cuda" and launches != expected:
+        raise AssertionError(f"{part}: kernel launches {launches}, expected {expected}")
+
+
+def compare_step_forms(run, iters: int = 10) -> dict:
+    """On one batch of a local run of client 0 prepared as the next round
+    would prepare it: the cached step's con_loss and loss against the
+    recompute step's from the same state and flip (within MOON_TOL on the
+    card, 1e-5 on the CPU's fp32), then both forms timed (CUDA events over
+    ``iters`` steps back to back, in turns: cached, recompute, recompute,
+    cached) with the cache build's seconds.  Launches made here are not
+    the main path's: the caller has read the counts already."""
+    server, cfg = run.server, run.cfg
+    dev = server.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    client = server.clients[0]
+    combined, loader, state, last_net = client.prepare_local_run(
+        server.global_net, server.data.public_dataset, server.pretrained_fc,
+        server.generate_public_features(), server.pretrained_labels,
+        round_seed=server.global_round)
+    sync()
+    t0 = time.perf_counter()
+    g_cache, l_cache = client.build_flip_caches(server.global_net, last_net, combined)
+    sync()
+    cache_s = time.perf_counter() - t0
+    batches = DevicePrefetcher(loader, dev, depth=1).epoch(with_positions=True)
+    try:
+        imgs, labels, valid, idx = next(batches)
+    finally:
+        batches.close()
+        loader.close()
+    flip = torch.rand(imgs.shape[0], device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(0)) < 0.5
+    start = {k: v.clone() for k, v in state.backbone.state_dict().items()}
+    bce0 = {k: v.clone() for k, v in state.bce.state_dict().items()} if state.bce else None
+    fc0 = state.fc.detach().clone()
+
+    def fresh():
+        state.backbone.load_state_dict(start)
+        if state.bce is not None:
+            state.bce.load_state_dict(bce0)
+        return init_client_state(state.backbone, fc0, state.bce, cfg.optim.lr,
+                                 cfg.optim.momentum, cfg.optim.weight_decay)
+
+    recompute = branch_step_for(cfg, client.num_classes)
+    cached = branch_step_for(cfg, client.num_classes, cached_contrastive=True)
+    steps = {
+        "recompute": lambda s: recompute(s, server.global_net, last_net, imgs, labels,
+                                         valid, cfg.optim.lr, flip),
+        "cached": lambda s: cached(s, g_cache, l_cache, imgs, labels, valid, idx,
+                                   cfg.optim.lr, flip),
+    }
+    metrics = {name: fn(fresh())[1] for name, fn in steps.items()}
+    d_con = abs(float(metrics["cached"].con_loss) - float(metrics["recompute"].con_loss))
+    d_loss = abs(float(metrics["cached"].loss) - float(metrics["recompute"].loss))
+    tol = MOON_TOL if dev.type == "cuda" else 1e-5
+    log("paths", step_check="cached vs recompute", batch=int(imgs.shape[0]),
+        con_loss=float(metrics["recompute"].con_loss), d_con_loss=d_con,
+        loss=float(metrics["recompute"].loss), d_loss=d_loss, con_tol=tol,
+        loss_tol=cfg.loss.mu * tol)
+    if not (d_con <= tol and d_loss <= cfg.loss.mu * tol):
+        raise AssertionError(f"cached step: con_loss differs by {d_con}, loss by {d_loss} "
+                             f"(tolerances {tol}, {cfg.loss.mu * tol})")
+    times: dict = {"cached": [], "recompute": []}
+    s = fresh()
+    for name in ("cached", "recompute", "recompute", "cached"):
+        sync()
+        t0 = time.perf_counter()
+        if dev.type == "cuda":
+            times[name].append(cuda_ms(lambda: steps[name](s), 1,
+                                       f"{name} step x {iters}", batch=iters))
+        else:
+            for _ in range(iters):
+                steps[name](s)
+            times[name].append((time.perf_counter() - t0) * 1e3 / iters)
+    out = {"batch": int(imgs.shape[0]), "cache_build_s": cache_s,
+           "cache_rows": len(combined), "d_con_loss": d_con, "d_loss": d_loss}
+    for name, ms in times.items():
+        out[f"{name}_ms_per_step"] = float(np.mean(ms))
+        out[f"{name}_samples_per_s"] = imgs.shape[0] / float(np.mean(ms)) * 1e3
+    log("paths", step_forms=out)
+    del g_cache, l_cache
+    return out
+
+
+def _state_tensors(server) -> dict:
+    """The resume state's tensors of ``server`` on the CPU, by a flat key."""
+    out = {f"global.{k}": v.cpu() for k, v in server.global_net.state_dict().items()}
+    out["pretrained_fc"] = server.pretrained_fc.cpu()
+    for c in server.clients:
+        out[f"c{c.cid}.fc_local"] = c.fc_local.cpu()
+        for key, d in (("bce", c.bce_state), ("last", c.last_backbone)):
+            out.update({f"c{c.cid}.{key}.{k}": v.cpu() for k, v in (d or {}).items()})
+    return out
+
+
+def _saved_tensors(state: dict) -> dict:
+    out = {f"global.{k}": v for k, v in state["global"].items()}
+    out["pretrained_fc"] = state["pretrained_fc"]
+    for cid, cs in state["clients"].items():
+        out[f"{cid}.fc_local"] = cs["fc_local"]
+        for key in ("bce", "last"):
+            out.update({f"{cid}.{key}.{k}": v for k, v in cs.get(key, {}).items()})
+    return out
+
+
+def resume_part(argv: list, saved: dict, meta: dict) -> dict:
+    """--resume --total_round 3 on a copy of 7a's round states: the restored
+    state bitwise equal to the saved one, one round, and that round's client
+    sample equal to what ``sample_clients`` draws from the saved RNG state."""
+    checked = {}
+
+    def check_restored(run):
+        got, want = _state_tensors(run.server), _saved_tensors(saved)
+        if got.keys() != want.keys():
+            raise AssertionError(f"restored keys differ: {sorted(got.keys() ^ want.keys())}")
+        bad = [k for k in want if not torch.equal(got[k], want[k])]
+        if bad:
+            raise AssertionError(f"restored state differs from the save: {bad[:5]}")
+        checked["tensors"] = len(want)
+
+    run, history, launches, text = drive(argv, on_setup=check_restored)
+    rng = np.random.default_rng()
+    rng.bit_generator.state = meta["rng_state"]
+    n = run.cfg.data.num_clients
+    k = int(round(run.cfg.fed.client_sampled_ratio * n))
+    replay = sorted(rng.choice(n, size=k, replace=False).tolist())
+    restored = RESTORE_RE.search(text)
+    if not restored or int(restored.group(1)) != meta["global_round"]:
+        raise AssertionError(f"training.log: no 'resumed at round {meta['global_round']}'")
+    if [h["round"] for h in history] != [meta["global_round"]]:
+        raise AssertionError(f"rounds run after the resume: {[h['round'] for h in history]}")
+    if history[0]["clients"] != replay:
+        raise AssertionError(f"client sample {history[0]['clients']} != replay {replay}")
+    expect_launches(run, launches, {"max_sim": len(replay),
+                                    "roc_hist": len(run.server.local_candidates)},
+                    "7b resume")
+    log("paths", resumed_at=restored.group(1), restore_s=restored.group(2),
+        bitwise_equal_tensors=checked["tensors"], sample=replay)
+    return {"launches": launches, "restore_s": float(restored.group(2)),
+            "ckpt_save_s": history[0]["ckpt_save_s"]}
+
+
+def phase_paths(root: str, n_clients: int, ids: int, **round_kw) -> dict:
+    """Phase 7: the sequential round's other paths through the training CLI
+    (7a cached contrastive + SpreadOut, 7b resume, 7c FC-row mining, 7d the
+    plain objective), each part's launches counted over its rounds alone.
+    Returns {part: launches} and logs the figures."""
+    by_part, figures = {}, {}
+    base = round_args(root, n_clients, ids, **round_kw)
+
+    def argv_for(out_name: str, rounds: int, extra: list, drop=()) -> list:
+        argv = [a for a in base if a not in drop]
+        argv[argv.index("--output_dir") + 1] = os.path.join(root, out_name)
+        argv[argv.index("--total_round") + 1] = str(rounds)
+        return argv + extra
+
+    # 7a: the local FC rows come from a client FC cache whose pairs lie above
+    # SpreadOut's margin (--pretrained_root, --init_fc): the seeded
+    # N(0, 0.01) rows are near-orthogonal at E=512 and stay so over the
+    # rounds at random weights, which leaves SpreadOut's objective at 0
+    pre = os.path.join(root, "pretrain_paths")
+    write_client_fc_cache(pre, n_clients * ids, round_kw.get("embedding", 512), seed=7)
+    paths_flags = ["--cache_contrastive", "--spreadout", "--pretrained_root", pre,
+                   "--init_fc"]
+    out_a = os.path.join(root, "run_paths")
+    run, history, launches, text = drive(argv_for(
+        "run_paths", 2, paths_flags + ["--round_ckpt_every", "1"]))
+    server = run.server
+    expect_launches(run, launches, {
+        "max_sim": n_clients * 2, "roc_hist": len(server.local_candidates) * 3}, "7a")
+    spread = [(int(m.group(1)), float(m.group(3)), float(m.group(4)))
+              for m in SPREADOUT_RE.finditer(text)]
+    if [r for r, _, _ in spread] != [0, 1] or not all(
+            0 < after < before for _, before, after in spread):
+        raise AssertionError(f"SpreadOut did not lower its objective each round: {spread}")
+    caches = [(int(m.group(1)), float(m.group(2))) for m in CACHE_RE.finditer(text)]
+    if len(caches) != n_clients * 2:
+        raise AssertionError(f"{len(caches)} cache builds logged, expected {n_clients * 2}")
+    log("paths", part="7a", spreadout=spread, cache_builds=caches)
+    by_part["7a_cached_spreadout"] = launches
+    figures["7a"] = {"round_s": [h["seconds"] for h in history],
+                     "ckpt_save_s": [h["ckpt_save_s"] for h in history],
+                     "cache_builds": caches, "spreadout": spread,
+                     "steps": compare_step_forms(run)}
+    del run, server
+
+    # 7b: resume at round 2 of 7a's states, then again on a copy taken first,
+    # with the async writer, the background fetch and one state kept
+    ckpt = RoundCheckpointer(os.path.join(out_a, "rounds"))
+    saved, meta = ckpt.load(ckpt.latest())
+    out_copy = os.path.join(root, "run_paths_async")
+    shutil.copytree(os.path.join(out_a, "rounds"), os.path.join(out_copy, "rounds"))
+    first = resume_part(argv_for("run_paths", 3, paths_flags + ["--resume"]),
+                        saved, meta)
+    second = resume_part(argv_for("run_paths_async", 3, paths_flags + [
+        "--resume", "--round_ckpt_async", "--round_ckpt_bg_fetch",
+        "--round_ckpt_keep", "1"]), saved, meta)
+    left = sorted(os.listdir(os.path.join(out_copy, "rounds")))
+    if left != ["round_3.meta.json", "round_3.pt"]:
+        raise AssertionError(f"--round_ckpt_keep 1 left {left}")
+    by_part["7b_resume"] = {k: first["launches"][k] + second["launches"][k]
+                            for k in first["launches"]}
+    figures["7b"] = {"restore_s": [first["restore_s"], second["restore_s"]],
+                     "ckpt_save_s": {"sync": first["ckpt_save_s"],
+                                     "async_bg_fetch": second["ckpt_save_s"]}}
+    del first, second
+
+    # 7c: FC-row mining; the threshold lies between two middle per-identity
+    # scores of client 0, so that its mined set is a strict subset
+    def fc_threshold(run):
+        s = run.server
+        loc = s.clients[0].fc_local.float()
+        pub = s.pretrained_fc.float()
+        sim = (loc / loc.norm(dim=1, keepdim=True)) @ (pub / pub.norm(dim=1, keepdim=True)).t()
+        best = sim.max(dim=0).values.sort().values.cpu()
+        mid = len(best) // 2
+        run.cfg.fed.hn_fc_threshold = float(best[mid - 1] + best[mid]) / 2
+        log("paths", part="7c", hn_fc_threshold=run.cfg.fed.hn_fc_threshold)
+
+    run, history, launches, text = drive(argv_for(
+        "run_paths_fc", 1, ["--hn_strategy", "fc"]), on_setup=fc_threshold)
+    public = len(run.server.data.public_dataset)
+    mined = history[0]["mined"]
+    if "public features" in text or not 0 < mined[0] < public:
+        raise AssertionError(f"7c: a public embed ran, or client 0 mined {mined[0]} of {public}")
+    expect_launches(run, launches, {"max_sim": 0,
+                                    "roc_hist": len(run.server.local_candidates) * 2}, "7c")
+    by_part["7c_fc_mining"] = launches
+    figures["7c"] = {"round_s": history[0]["seconds"], "mined": mined}
+    del run
+
+    # 7d: the plain objective (no public data) at run.sh's --batch_size 64
+    run, history, launches, text = drive(argv_for(
+        "run_paths_plain", 1, ["--batch_size", "64"], drop=("--add_pretrained_data",)))
+    own = [len(run.server.clients[c].dataset) for c in history[0]["clients"]]
+    if history[0]["dataset_sizes"] != own or "public features" in text:
+        raise AssertionError(f"7d: dataset sizes {history[0]['dataset_sizes']} != {own}")
+    expect_launches(run, launches, {"max_sim": 0,
+                                    "roc_hist": len(run.server.local_candidates) * 2}, "7d")
+    by_part["7d_plain"] = launches
+    figures["7d"] = {"round_s": history[0]["seconds"]}
+    log("paths", figures=json.dumps(figures))
+    return by_part
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -862,6 +1216,9 @@ def main() -> None:
         by_phase["local_all"] = phase_local_all(
             argv[argv.index("--output_dir") + 1], root, 2, 100, "iresnet100", 512,
             converter_layer=2)
+        t0 = time.perf_counter()
+        by_phase.update(phase_paths(root, n_clients=2, ids=100))
+        log("paths", seconds=f"{time.perf_counter() - t0:.2f}")
     for record in (mining, roc):
         counts = {k: v[record["name"]] for k, v in by_phase.items()}
         record["launches"] = sum(counts.values())

@@ -149,8 +149,13 @@ class BatchLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
-    def epoch(self):
-        """Yield (images u8 NHWC, labels i32, valid bool) for one epoch."""
+    def epoch(self, with_positions: bool = False):
+        """Yield (images u8 NHWC, labels i32, valid bool) for one epoch.
+
+        ``with_positions`` appends the batch's dataset positions (int32; pad
+        slots repeat the first position, as the images do), which the
+        cached-contrastive step gathers its frozen features by.
+        """
         n = len(self.dataset)
         order = self.rng.permutation(n) if self.shuffle else np.arange(n)
         bs = self.batch_size
@@ -163,7 +168,7 @@ class BatchLoader:
             items = list(self.pool.map(self.dataset.read, idx))
             imgs = np.stack([it[0] for it in items])
             labels = np.array([it[1] for it in items], dtype=np.int32)
-            yield imgs, labels, valid
+            yield (imgs, labels, valid) + ((idx.astype(np.int32),) if with_positions else ())
 
 
 class AllClientData:

@@ -94,7 +94,9 @@ class DevicePrefetcher:
     def __len__(self) -> int:
         return len(self.loader)
 
-    def epoch(self) -> Iterator[Tuple[torch.Tensor, ...]]:
+    def epoch(self, **epoch_kwargs) -> Iterator[Tuple[torch.Tensor, ...]]:
+        """One epoch of the loader's batches on the device; ``epoch_kwargs``
+        go to the loader's ``epoch`` (``with_positions``)."""
         batches = (to_device_batch(parts, self.device)
-                   for parts in self.loader.epoch())
+                   for parts in self.loader.epoch(**epoch_kwargs))
         yield from prefetched(batches, self.depth)

@@ -1,7 +1,9 @@
 """Client: local trainer for one federated participant (PyTorch).
 
 Counterpart of ``fedfr_tpu/federated/client.py`` (reference client.py:116-582)
-for the joint public-data objective.  Between rounds a client keeps its
+for the joint public-data objective (mining by image features or by FC
+rows; the MOON term recomputed or gathered from per-run caches) and the
+plain objective over the client's own data.  Between rounds a client keeps its
 local FC, its BCE state_dict and its last-round backbone state_dict on the
 device; a local run loads them into modules that every client shares (the
 server's work modules), trains, and copies the results back out.
@@ -21,11 +23,13 @@ from torch import nn
 from ..config import FedFRConfig
 from ..data.datasets import BatchLoader, CombinedDataset, FaceRecordDataset
 from ..data.pipeline import DevicePrefetcher
-from ..models import BCEModule, build_backbone
+from ..models import BCEModule, build_backbone, l2_normalize
 from ..utils.device import resolve_device
 from ..utils.optim import step_lr
-from .embed import class_mean_features, embed_dataset, max_similarity
-from .trainer import init_client_state, make_branch_train_step
+from .embed import (class_mean_features, embed_dataset, embed_flip_caches,
+                    max_similarity)
+from .trainer import (branch_step_for, init_client_state, make_plain_train_step,
+                      use_cached_contrastive)
 
 logger = logging.getLogger("fedfr_tpu_torch.client")
 
@@ -188,17 +192,50 @@ class Client:
             imgidx = np.array([1])
         return public_dataset.subset(imgidx)
 
+    def select_hard_negatives_fc(self, pretrained_fc: torch.Tensor,
+                                 public_dataset: FaceRecordDataset,
+                                 public_labels: np.ndarray,
+                                 threshold: float = 0.2) -> FaceRecordDataset:
+        """FC-row mining (reference choose_hard_negative, client.py:227-267):
+        the fp32 cosine similarity between the client's FC rows and the
+        global FC's selects the public identities above ``threshold`` for
+        any local row; every public image of those identities is kept.  A
+        (100, E) x (E, C_pub) product outside any kernel of the TPU
+        package, so a plain ``torch.matmul``."""
+        local = l2_normalize(self.fc_local.float(), dim=1)
+        public = l2_normalize(pretrained_fc.to(local.device).float(), dim=1)
+        sim = torch.matmul(local, public.t())
+        ids = np.unique(torch.nonzero(sim > threshold)[:, 1].cpu().numpy())
+        logger.info("client %d: %d IDs are hard negative (FC-based)",
+                    self.cid, len(ids))
+        imgidx = np.nonzero(np.isin(public_labels, ids))[0] + 1
+        self.mined = len(imgidx)
+        if len(imgidx) == 0:
+            imgidx = np.array([1])
+        return public_dataset.subset(imgidx)
+
     def prepare_local_run(self, global_net: nn.Module, public_dataset,
-                          pretrained_fc: torch.Tensor, public_feats: torch.Tensor,
+                          pretrained_fc: torch.Tensor,
+                          public_feats: Optional[torch.Tensor],
                           public_labels: np.ndarray, round_seed: int = 0):
         """Mining + combined loader + initial train state for one local run.
 
-        Returns (combined dataset, loader, state, last_net): ``state`` holds
-        the shared work modules loaded with this run's starting weights.
+        Mining follows ``fed.hn_strategy`` (JAX client.py:194-211): FC rows,
+        else image features where the round embedded the public set, else
+        the whole public set.  Returns (combined dataset, loader, state,
+        last_net): ``state`` holds the shared work modules loaded with this
+        run's starting weights.
         """
         cfg = self.cfg
-        public_subset = self.select_hard_negatives(
-            global_net, public_dataset, public_feats, public_labels)
+        if cfg.fed.hn_strategy == "fc":
+            public_subset = self.select_hard_negatives_fc(
+                pretrained_fc, public_dataset, public_labels,
+                threshold=cfg.fed.hn_fc_threshold)
+        elif public_feats is not None:
+            public_subset = self.select_hard_negatives(
+                global_net, public_dataset, public_feats, public_labels)
+        else:
+            public_subset = public_dataset
         combined = CombinedDataset(self.dataset, public_subset)
         self.dataset_size = len(combined)  # FedAvg weight (client.py:303)
 
@@ -246,33 +283,27 @@ class Client:
                                    dtype=torch.bool, device=imgs.device)
         return torch.rand(imgs.shape[0], generator=gen, device=imgs.device) < 0.5
 
-    def train_with_public_data(self, global_net: nn.Module, public_dataset,
-                               pretrained_fc: torch.Tensor,
-                               public_feats: torch.Tensor,
-                               public_labels: np.ndarray,
-                               local_epochs: int, train_decay: int,
-                               step_fn=None, round_seed: int = 0) -> Dict[str, float]:
-        """One local run of the joint objective (client.py:287-508)."""
-        cfg = self.cfg
-        combined, base_loader, state, last_net = self.prepare_local_run(
-            global_net, public_dataset, pretrained_fc, public_feats,
-            public_labels, round_seed)
-        loader = DevicePrefetcher(base_loader, self.device, depth=cfg.data.prefetch)
-        if len(loader) == 0:
-            base_loader.close()
-            raise ValueError(
-                f"client {self.cid}: combined dataset ({len(combined)} imgs) "
-                f"smaller than the batch size {cfg.data.combined_batch_size}")
-        if step_fn is None:
-            step_fn = make_branch_train_step(
-                margin=cfg.loss.loss, s=cfg.loss.margin_s, m=cfg.loss.margin_m,
-                bce_weight=cfg.loss.bce_weight, bce_r=cfg.loss.bce_r,
-                bce_lambda=cfg.loss.bce_lambda, mu=cfg.loss.mu,
-                temperature=cfg.loss.temperature, bce_detach=cfg.fed.bce_detach,
-                contrastive=cfg.fed.contrastive, reweight=cfg.fed.reweight_cosface,
-                num_local=self.num_classes, num_clients=cfg.data.num_clients,
-                fedprox_mu=cfg.fed.fedprox_mu)
+    def build_flip_caches(self, global_net: nn.Module, last_net: nn.Module,
+                          combined) -> list:
+        """The cached-contrastive step's (N, 2, E) feature caches of the
+        global and the last model over ``combined``, built once per local
+        run at ``eval_batch_size``; logs the build's seconds."""
+        tic = time.perf_counter()
+        caches = embed_flip_caches([global_net, last_net], combined,
+                                   self.cfg.data.eval_batch_size,
+                                   device=self.device,
+                                   num_workers=self.cfg.data.num_workers,
+                                   prefetch=self.cfg.data.prefetch)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        logger.info("client %d: contrastive caches of %d imgs built in %.3f s",
+                    self.cid, len(combined), time.perf_counter() - tic)
+        return caches
 
+    def _generators(self, round_seed: int):
+        """This run's flip generator (None when ``flip_fn`` injects the
+        masks) and dropout generator (None without dropout)."""
+        cfg = self.cfg
         gen = dropout_gen = None
         if self.flip_fn is None:
             gen = torch.Generator(device=self.device).manual_seed(
@@ -280,6 +311,34 @@ class Client:
         if cfg.model.dropout > 0:
             dropout_gen = torch.Generator(device=self.device).manual_seed(
                 _dropout_seed(cfg.runtime.seed, round_seed, self.cid))
+        return gen, dropout_gen
+
+    def train_with_public_data(self, global_net: nn.Module, public_dataset,
+                               pretrained_fc: torch.Tensor,
+                               public_feats: Optional[torch.Tensor],
+                               public_labels: np.ndarray,
+                               local_epochs: int, train_decay: int,
+                               step_fn=None, round_seed: int = 0) -> Dict[str, float]:
+        """One local run of the joint objective (client.py:287-508).  Under
+        ``use_cached_contrastive`` the frozen models' features are cached
+        before the first step and ``step_fn`` must be the cached step."""
+        cfg = self.cfg
+        combined, base_loader, state, last_net = self.prepare_local_run(
+            global_net, public_dataset, pretrained_fc, public_feats,
+            public_labels, round_seed)
+        loader = DevicePrefetcher(base_loader, self.device, depth=cfg.data.prefetch)
+        if len(loader) == 0:  # fail before the cache build below
+            base_loader.close()
+            raise ValueError(
+                f"client {self.cid}: combined dataset ({len(combined)} imgs) "
+                f"smaller than the batch size {cfg.data.combined_batch_size}")
+        use_cache = use_cached_contrastive(cfg)
+        if use_cache:
+            g_cache, l_cache = self.build_flip_caches(global_net, last_net, combined)
+        if step_fn is None:
+            step_fn = branch_step_for(cfg, self.num_classes, use_cache)
+
+        gen, dropout_gen = self._generators(round_seed)
         # the loss sums stay on the device: one host sync per epoch; the
         # reported loss is the mean over every step of the run (reference
         # AverageMeter semantics, client.py:349-352,404)
@@ -292,11 +351,17 @@ class Client:
                 lr = step_lr(cfg.optim.lr, epoch, train_decay, cfg.optim.lr_gamma)
                 tic = time.perf_counter()
                 epoch_steps = 0
-                for imgs, labels, valid in loader.epoch():
+                for batch in loader.epoch(with_positions=use_cache):
+                    imgs, labels, valid = batch[:3]
                     flip = self._flip(n_steps, imgs, gen)
-                    state, metrics = step_fn(state, global_net, last_net, imgs,
-                                             labels, valid, lr, flip,
-                                             dropout_gen=dropout_gen)
+                    if use_cache:
+                        state, metrics = step_fn(state, g_cache, l_cache, imgs,
+                                                 labels, valid, batch[3], lr,
+                                                 flip, dropout_gen=dropout_gen)
+                    else:
+                        state, metrics = step_fn(state, global_net, last_net,
+                                                 imgs, labels, valid, lr, flip,
+                                                 dropout_gen=dropout_gen)
                     acc += torch.stack(metrics)
                     n_steps += 1
                     epoch_steps += 1
@@ -313,5 +378,60 @@ class Client:
             base_loader.close()  # even on a mid-run failure
         warn_if_collapsed(cfg, self.cid, cos_trace, state.fc.shape[0])
         self.finalize_local_run(state, sums[0] / max(n_steps, 1))
+        return {"loss": self.last_loss, "steps": n_steps,
+                "dataset_size": self.dataset_size}
+
+    # ------------------------------------------------------ plain objective
+
+    def prepare_plain_run(self, global_net: nn.Module, round_seed: int = 0):
+        """Loader + initial train state for one plain local run (JAX
+        client.py:380-390): the client's own data at ``data.batch_size``,
+        shuffled, the last batch padded and masked; the state is the work
+        backbone loaded with the global weights and the client's own FC."""
+        cfg = self.cfg
+        loader = BatchLoader(self.dataset, cfg.data.batch_size, shuffle=True,
+                             seed=_loader_seed(cfg.runtime.seed, round_seed, self.cid),
+                             drop_last=False, num_workers=cfg.data.num_workers)
+        self.backbone.load_state_dict(global_net.state_dict())
+        state = init_client_state(self.backbone, self.fc_local, None, cfg.optim.lr,
+                                  cfg.optim.momentum, cfg.optim.weight_decay)
+        return loader, state
+
+    def finalize_plain_run(self, state, avg_loss: float) -> None:
+        """Keep a plain run's state (reference client.py:566-570): the whole
+        trained FC is the local FC, and the FedAvg weight is the client's
+        own set."""
+        if not np.isfinite(avg_loss):
+            logger.warning("client %d: NON-FINITE loss %r in plain local "
+                           "training", self.cid, avg_loss)
+        self.fc_local = state.fc.detach().clone()
+        self.trained_backbone = _detached(state.backbone)
+        self.last_loss = float(avg_loss)
+        self.dataset_size = len(self.dataset)
+
+    def train(self, global_net: nn.Module, local_epochs: int, lr: float,
+              step_fn=None, round_seed: int = 0) -> Dict[str, float]:
+        """Plain CosFace-only local training (reference client.py:511-571):
+        a constant ``lr``, the loss averaged over every step of the run."""
+        cfg = self.cfg
+        base_loader, state = self.prepare_plain_run(global_net, round_seed)
+        loader = DevicePrefetcher(base_loader, self.device, depth=cfg.data.prefetch)
+        if step_fn is None:
+            step_fn = make_plain_train_step(margin=cfg.loss.loss, s=cfg.loss.margin_s,
+                                            m=cfg.loss.margin_m)
+        gen, dropout_gen = self._generators(round_seed)
+        loss_acc = torch.zeros((), device=self.device)
+        n_steps = 0
+        try:
+            for _ in range(local_epochs):
+                for imgs, labels, valid in loader.epoch():
+                    flip = self._flip(n_steps, imgs, gen)
+                    state, loss = step_fn(state, imgs, labels, valid, lr, flip,
+                                          dropout_gen=dropout_gen)
+                    loss_acc += loss  # on-device running sum
+                    n_steps += 1
+        finally:
+            base_loader.close()
+        self.finalize_plain_run(state, float(loss_acc) / max(n_steps, 1))
         return {"loss": self.last_loss, "steps": n_steps,
                 "dataset_size": self.dataset_size}

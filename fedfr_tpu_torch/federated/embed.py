@@ -7,7 +7,7 @@ prefetch pipeline.  Features stay on the device.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -69,6 +69,43 @@ def embed_dataset(model: nn.Module, dataset, batch_size: int = 512,
     if l2norm:
         feats = l2_normalize(feats, dim=1)
     return feats, labels_out
+
+
+@torch.no_grad()
+def embed_flip_caches(models: Sequence[nn.Module], dataset, batch_size: int = 512,
+                      device: Optional[Union[str, torch.device]] = "cuda",
+                      num_workers: int = 6, prefetch: int = 2) -> List[torch.Tensor]:
+    """Per-(image, orientation) features of FROZEN models: one (N, 2, E)
+    tensor on ``device`` per entry of ``models``, axis 1 = [original,
+    h-flipped], in dataset order, un-normalized.
+
+    Backs the cached-contrastive train step (``trainer.py``): the MOON
+    global and last-round models are fixed for a whole local run and run in
+    eval mode, so the client embeds its combined dataset once per run and
+    the step gathers rows by (position, flip) in place of two frozen
+    forwards per step.  Every model reads one pass over the data, so each
+    batch is decoded and copied to the device once.  The input is the
+    step's own: ``normalize_images`` of the uint8 batch, mirrored on the W
+    axis of NHWC (``train_preprocess`` with the flip applied).
+
+    The JAX package pads the row count to a multiple of 8,192 to bound XLA
+    recompiles across the mined datasets' sizes; PyTorch compiles nothing
+    per shape, so the caches here hold exactly N rows.
+    """
+    device = resolve_device(device)
+    for model in models:
+        model.eval()
+    chunks: List[List[torch.Tensor]] = [[] for _ in models]
+    with BatchLoader(dataset, batch_size, shuffle=False, drop_last=False,
+                     num_workers=num_workers) as loader:
+        batches = ((to_device_batch((imgs,), device)[0], valid)
+                   for imgs, _labels, valid in loader.epoch())
+        for u8, valid in prefetched(batches, prefetch):
+            nvalid = int(valid.sum())
+            x, xf = normalize_images(u8), normalize_images(u8.flip(2))
+            for chunk, model in zip(chunks, models):
+                chunk.append(torch.stack([model(x), model(xf)], dim=1)[:nvalid])
+    return [torch.cat(c) for c in chunks]
 
 
 def class_mean_features(feats: torch.Tensor, labels: np.ndarray,

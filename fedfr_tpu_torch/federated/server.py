@@ -23,10 +23,11 @@ the clients' local FCs from the ``preCos_init_AN.pth`` cache (every
 client's rows stacked in client order).  A missing file falls back to what
 the JAX ``Server`` does without it.
 
-Not ported yet (ROADMAP queue A): the client-parallel and lockstep rounds,
-SpreadOut, FC-row mining, the cached contrastive step, the plain (no public
-data) objective and the resume state.  The config switches of those paths
-raise here instead of being ignored.
+Every switch of the JAX sequential ``train_round`` is here: the joint
+public-data objective with feature or FC-row mining and the MOON term
+recomputed or cached, the plain objective (``fed.add_pretrained_data``
+off), and SpreadOut after the aggregation.  Not ported yet (ROADMAP queue
+A): the client-parallel and lockstep rounds.
 """
 
 from __future__ import annotations
@@ -42,12 +43,13 @@ import torch
 from ..config import FedFRConfig
 from ..data.datasets import AllClientData
 from ..models import BCEModule, build_backbone
-from ..parallel.fedavg import fedavg_on_fc, streaming_weighted_average
+from ..parallel.fedavg import (fedavg_on_fc, spreadout, spreadout_loss,
+                               streaming_weighted_average)
 from ..utils.checkpoint import load_backbone_state, load_pth
 from ..utils.device import resolve_device
 from .client import Client
 from .embed import class_mean_features, embed_dataset
-from .trainer import make_branch_train_step
+from .trainer import branch_step_for, make_plain_train_step, use_cached_contrastive
 
 logger = logging.getLogger("fedfr_tpu_torch.server")
 
@@ -56,26 +58,10 @@ def _host_state(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.detach().cpu() for k, v in state.items()}
 
 
-def _check_ported(cfg: FedFRConfig) -> None:
-    unported = {
-        "fed.add_pretrained_data=False (the plain objective)":
-            not cfg.fed.add_pretrained_data,
-        "fed.spreadout": cfg.fed.spreadout,
-        "fed.hn_strategy='fc' (FC-row mining)": cfg.fed.hn_strategy == "fc",
-        "fed.cache_contrastive": cfg.fed.cache_contrastive,
-    }
-    bad = [name for name, on in unported.items() if on]
-    if bad:
-        raise NotImplementedError(
-            "not ported to the PyTorch package yet (ROADMAP queue A): "
-            + ", ".join(bad))
-
-
 class Server:
     def __init__(self, cfg: FedFRConfig, data: AllClientData,
                  eval_callback: Optional[Callable] = None,
                  local_eval_callback: Optional[Callable] = None):
-        _check_ported(cfg)
         self.cfg = cfg
         self.data = data
         self.device = resolve_device(cfg.runtime.device)
@@ -126,13 +112,15 @@ class Server:
         # pretrained (public) FC + labels
         self.pretrained_fc: Optional[torch.Tensor] = None
         self.pretrained_labels: Optional[np.ndarray] = None
-        self._init_pretrain_fc()
+        if cfg.fed.add_pretrained_data:
+            self._init_pretrain_fc()
         if cfg.fed.init_fc:
             self.initialize_local_fcs()
         if cfg.fed.bce_local:
             for c in self.clients:
                 c.init_bce_from_fc()
         self._branch_step = None
+        self._plain_step = None
 
     def _pretrained(self, name: str) -> str:
         """``<pretrained_root>/<name>`` if there is such a file, else ''."""
@@ -199,6 +187,8 @@ class Server:
         reads without a copy.  On the CPU they stay fp32."""
         feats, _ = self._embed(self.data.public_dataset,
                                self.cfg.data.public_batch_size, l2norm=True)
+        logger.info("round %d: public features %s embedded", self.global_round,
+                    tuple(feats.shape))
         return feats.to(torch.bfloat16) if feats.is_cuda else feats
 
     def sample_clients(self) -> List[int]:
@@ -219,26 +209,33 @@ class Server:
                 f"(reference split_FL.py relabels every client 0..99)")
 
     def train_round(self) -> Dict[str, float]:
+        """One sequential round (JAX server.py:312-414): the public embed
+        where feature mining reads it, each sampled client's local run of
+        the joint or the plain objective, FedAvg, the global FC's FedAvg
+        under ``return_all`` and SpreadOut under ``fed.spreadout``."""
         cfg = self.cfg
         if not self.current_client_list:
             self.current_client_list = self.sample_clients()
-        public_feats = self.generate_public_features()
+        public_feats = None
+        if cfg.fed.add_pretrained_data and cfg.fed.hn_strategy != "fc":
+            # FC-row mining reads no image features: no public embed then
+            public_feats = self.generate_public_features()
 
         # adaptive local-epoch schedule (server.py:278-280)
         if cfg.fed.adaptive_local_epoch and self.global_round != 0:
             self.local_epoch = max(4, self.local_epoch - 2)
             self.train_decay = max(1, int(3 / 4 * self.local_epoch))
 
-        self._check_uniform_classes()
-        if self._branch_step is None:
-            self._branch_step = make_branch_train_step(
-                margin=cfg.loss.loss, s=cfg.loss.margin_s, m=cfg.loss.margin_m,
-                bce_weight=cfg.loss.bce_weight, bce_r=cfg.loss.bce_r,
-                bce_lambda=cfg.loss.bce_lambda, mu=cfg.loss.mu,
-                temperature=cfg.loss.temperature, bce_detach=cfg.fed.bce_detach,
-                contrastive=cfg.fed.contrastive, reweight=cfg.fed.reweight_cosface,
-                num_local=self.clients[0].num_classes,
-                num_clients=cfg.data.num_clients, fedprox_mu=cfg.fed.fedprox_mu)
+        if cfg.fed.add_pretrained_data:
+            self._check_uniform_classes()
+            if self._branch_step is None:
+                self._branch_step = branch_step_for(
+                    cfg, self.clients[0].num_classes, use_cached_contrastive(cfg))
+        elif self._plain_step is None:
+            # no reweighting: the reference applies reweight_cosface only in
+            # the public-data branch (client.py:269-285)
+            self._plain_step = make_plain_train_step(
+                margin=cfg.loss.loss, s=cfg.loss.margin_s, m=cfg.loss.margin_m)
 
         models, fcs, sizes, losses = [], [], [], []
         for pos, cid in enumerate(self.current_client_list):
@@ -251,11 +248,16 @@ class Server:
                 # client has no trained state yet, so the global model
                 self.local_eval_callback(self, client, epoch=-1,
                                          variables=self.global_net.state_dict())
-            stats = client.train_with_public_data(
-                self.global_net, self.data.public_dataset, self.pretrained_fc,
-                public_feats, self.pretrained_labels, self.local_epoch,
-                self.train_decay, step_fn=self._branch_step,
-                round_seed=self.global_round)
+            if cfg.fed.add_pretrained_data:
+                stats = client.train_with_public_data(
+                    self.global_net, self.data.public_dataset, self.pretrained_fc,
+                    public_feats, self.pretrained_labels, self.local_epoch,
+                    self.train_decay, step_fn=self._branch_step,
+                    round_seed=self.global_round)
+            else:
+                stats = client.train(self.global_net, self.local_epoch, cfg.optim.lr,
+                                     step_fn=self._plain_step,
+                                     round_seed=self.global_round)
             losses.append(stats["loss"])
             sizes.append(stats["dataset_size"])
             models.append(client.trained_backbone)
@@ -271,7 +273,33 @@ class Server:
         if cfg.fed.return_all and fcs:
             self.pretrained_fc = fedavg_on_fc(self.pretrained_fc,
                                               torch.stack(fcs), sizes, p=1.0)
+        if cfg.fed.spreadout:
+            self.spread_out()
         return {"avg_loss": float(np.mean(losses))}
+
+    def spread_out(self) -> None:
+        """SpreadOut over the sampled clients' local FCs (server.py:340-371):
+        their rows concatenated in client order, ``spreadout`` at 10x the
+        base lr, split back.  Logs the objective before and after."""
+        cfg = self.cfg
+        clients = [self.clients[cid] for cid in self.current_client_list]
+        fc_all = torch.cat([c.fc_local for c in clients])
+        out = spreadout(fc_all, margin=cfg.fed.spreadout_margin,
+                        iters=cfg.fed.spreadout_iters, lr=cfg.optim.lr * 10,
+                        momentum=cfg.optim.momentum,
+                        weight_decay=cfg.optim.weight_decay,
+                        mode=cfg.fed.spreadout_mode)
+        # the objective in fp64, so that a small drop is not lost in the
+        # fp32 sum over N(N-1) pairs
+        logger.info("round %d spreadout over %d rows: objective %.9e -> %.9e",
+                    self.global_round, fc_all.shape[0],
+                    *(float(spreadout_loss(fc.double(), cfg.fed.spreadout_margin,
+                                           cfg.fed.spreadout_mode))
+                      for fc in (fc_all, out)))
+        start = 0
+        for c in clients:
+            c.fc_local = out[start:start + c.num_classes]
+            start += c.num_classes
 
     def advance_round(self) -> None:
         """Counter bookkeeping after a round (reference train.py:87-88); clears

@@ -1,8 +1,10 @@
-"""Local-training step of the FedFR joint objective (PyTorch).
+"""Local-training steps of the FedFR objectives (PyTorch).
 
-Counterpart of ``fedfr_tpu/federated/trainer.py``'s ``make_branch_train_step``
-in its per-step-recompute form (the frozen global and last-round models run
-every step).  The step reproduces the reference hot loop (client.py:355-404):
+Counterpart of ``fedfr_tpu/federated/trainer.py``: the branch step in its
+per-step-recompute form (the frozen global and last-round models run every
+step) and its cached-contrastive form (their features gathered from
+per-run caches), and the plain step.  The branch step reproduces the
+reference hot loop (client.py:355-404):
 
     loss = CE(margin(cos_logits), labels)
          + 10 * BCE(transformation-layer logits)
@@ -21,6 +23,7 @@ as it does in the JAX package, so the step needs no flag for it.
 
 from __future__ import annotations
 
+import logging
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -39,6 +42,43 @@ class StepMetrics(NamedTuple):
     con_loss: torch.Tensor
 
 
+_warned_cache_fallback = False
+
+
+def use_cached_contrastive(cfg) -> bool:
+    """One predicate for every build and call site of the cached-contrastive
+    step (the client and the server's round), so they never disagree on the
+    step's signature: ``fed.cache_contrastive`` with ``fed.contrastive`` on
+    and no FedProx term.  A request that cannot be met logs a warning once
+    and runs the recompute step, as the JAX package does."""
+    active = bool(cfg.fed.cache_contrastive and cfg.fed.contrastive
+                  and cfg.fed.fedprox_mu == 0.0)
+    global _warned_cache_fallback
+    if cfg.fed.cache_contrastive and not active and not _warned_cache_fallback:
+        _warned_cache_fallback = True
+        logging.getLogger("fedfr_tpu_torch.trainer").warning(
+            "cache_contrastive requested but falling back to per-step "
+            "recompute: %s", "contrastive is disabled"
+            if not cfg.fed.contrastive
+            else "fedprox_mu > 0 needs the global model inside the step")
+    return active
+
+
+def _forward(state: ClientTrainState, x: torch.Tensor,
+             dropout_gen: Optional[torch.Generator]) -> torch.Tensor:
+    state.backbone.train()
+    return (state.backbone(x) if dropout_gen is None
+            else state.backbone(x, dropout_gen=dropout_gen))
+
+
+def _sgd_step(state: ClientTrainState, total: torch.Tensor, lr: float) -> None:
+    for group in state.opt.param_groups:
+        group["lr"] = lr
+    state.opt.zero_grad(set_to_none=True)
+    total.backward()
+    state.opt.step()
+
+
 def make_branch_train_step(*, margin: str = "CosFace", s: float = 30.0,
                            m: float = 0.4, bce_weight: float = 10.0,
                            bce_r: float = 30.0, bce_lambda: float = 0.7,
@@ -46,7 +86,8 @@ def make_branch_train_step(*, margin: str = "CosFace", s: float = 30.0,
                            bce_detach: bool = False, contrastive: bool = True,
                            reweight: bool = False, num_local: int = 100,
                            num_clients: int = 40,
-                           fedprox_mu: float = 0.0) -> Callable:
+                           fedprox_mu: float = 0.0,
+                           cached_contrastive: bool = False) -> Callable:
     """Train step for the joint local+public objective with the BCE branch.
 
     Returns ``step(state, global_net, last_net, images_u8, labels, valid, lr,
@@ -59,19 +100,30 @@ def make_branch_train_step(*, margin: str = "CosFace", s: float = 30.0,
 
     ``fedprox_mu`` > 0 adds mu/2 * ||w - w_global||^2 over the backbone
     parameters, as the JAX step does.
+
+    ``cached_contrastive`` returns ``cached_step(state, g_cache, l_cache,
+    images_u8, labels, valid, idx, lr, flip, dropout_gen=None)`` instead:
+    the two frozen forwards become gathers ``g_cache[idx, flip]`` and
+    ``l_cache[idx, flip]`` from the (N, 2, E) caches of
+    ``embed.embed_flip_caches`` (axis 1 = [original, h-flipped]), ``idx``
+    the batch's dataset positions.  The caller passes the same ``flip`` to
+    the trainable forward and the gather, so the features belong to the
+    images the step trains on.  The loss body is the recompute step's.
     """
     margin_fn = MARGINS[margin]
+    if cached_contrastive and not contrastive:
+        raise ValueError("cached_contrastive requires contrastive=True")
+    if cached_contrastive and fedprox_mu > 0.0:
+        raise ValueError(
+            "cached_contrastive drops the global model from the step; the "
+            "FedProx proximal term needs it — disable one")
 
-    def step(state: ClientTrainState, global_net: Optional[nn.Module],
-             last_net: Optional[nn.Module], images_u8: torch.Tensor,
-             labels: torch.Tensor, valid: torch.Tensor, lr: float,
-             flip: torch.Tensor,
-             dropout_gen: Optional[torch.Generator] = None):
-        x = train_preprocess(flip, images_u8)
+    def run(state: ClientTrainState, x: torch.Tensor, con_feats: Callable,
+            prox_net: Optional[nn.Module], labels: torch.Tensor,
+            valid: torch.Tensor, lr: float,
+            dropout_gen: Optional[torch.Generator]):
         labels = labels.long()
-        state.backbone.train()
-        feats = (state.backbone(x) if dropout_gen is None
-                 else state.backbone(x, dropout_gen=dropout_gen))
+        feats = _forward(state, x, dropout_gen)
 
         cos = cosine_logits(feats, state.fc)
         logits = margin_fn(cos, labels, s, m)
@@ -88,8 +140,7 @@ def make_branch_train_step(*, margin: str = "CosFace", s: float = 30.0,
 
         if contrastive:
             with torch.no_grad():
-                gfeats = global_net(x)
-                lfeats = last_net(x)
+                gfeats, lfeats = con_feats()
             con_l = moon_contrastive(feats, gfeats, lfeats, temperature, valid)
         else:
             con_l = torch.zeros((), device=feats.device)
@@ -97,17 +148,69 @@ def make_branch_train_step(*, margin: str = "CosFace", s: float = 30.0,
         total = cos_l + bce_weight * bce_l + mu * con_l
         if fedprox_mu > 0.0:
             sq = sum(((p - g.detach()) ** 2).sum() for p, g in zip(
-                state.backbone.parameters(), global_net.parameters()))
+                state.backbone.parameters(), prox_net.parameters()))
             total = total + 0.5 * fedprox_mu * sq
 
-        for group in state.opt.param_groups:
-            group["lr"] = lr
-        state.opt.zero_grad(set_to_none=True)
-        total.backward()
-        state.opt.step()
+        _sgd_step(state, total, lr)
         metrics = StepMetrics(total.detach(), cos_l.detach(), bce_l.detach(),
                               con_l.detach())
         return state, metrics
+
+    def step(state: ClientTrainState, global_net: Optional[nn.Module],
+             last_net: Optional[nn.Module], images_u8: torch.Tensor,
+             labels: torch.Tensor, valid: torch.Tensor, lr: float,
+             flip: torch.Tensor,
+             dropout_gen: Optional[torch.Generator] = None):
+        x = train_preprocess(flip, images_u8)
+        return run(state, x, lambda: (global_net(x), last_net(x)), global_net,
+                   labels, valid, lr, dropout_gen)
+
+    def cached_step(state: ClientTrainState, g_cache: torch.Tensor,
+                    l_cache: torch.Tensor, images_u8: torch.Tensor,
+                    labels: torch.Tensor, valid: torch.Tensor,
+                    idx: torch.Tensor, lr: float, flip: torch.Tensor,
+                    dropout_gen: Optional[torch.Generator] = None):
+        x = train_preprocess(flip, images_u8)
+        idx, fi = idx.long(), flip.long()
+        return run(state, x, lambda: (g_cache[idx, fi], l_cache[idx, fi]), None,
+                   labels, valid, lr, dropout_gen)
+
+    return cached_step if cached_contrastive else step
+
+
+def branch_step_for(cfg, num_local: int, cached_contrastive: bool = False) -> Callable:
+    """``make_branch_train_step`` with the loss and federated settings of
+    ``cfg`` (``num_local``: the clients' local class count)."""
+    return make_branch_train_step(
+        margin=cfg.loss.loss, s=cfg.loss.margin_s, m=cfg.loss.margin_m,
+        bce_weight=cfg.loss.bce_weight, bce_r=cfg.loss.bce_r,
+        bce_lambda=cfg.loss.bce_lambda, mu=cfg.loss.mu,
+        temperature=cfg.loss.temperature, bce_detach=cfg.fed.bce_detach,
+        contrastive=cfg.fed.contrastive, reweight=cfg.fed.reweight_cosface,
+        num_local=num_local, num_clients=cfg.data.num_clients,
+        fedprox_mu=cfg.fed.fedprox_mu, cached_contrastive=cached_contrastive)
+
+
+def make_plain_train_step(*, margin: str = "CosFace", s: float = 30.0,
+                          m: float = 0.4) -> Callable:
+    """CosFace/ArcFace-only local training over the client's own FC
+    (reference ``Client.train``, client.py:511-571; JAX
+    ``make_plain_train_step``).  Returns ``step(state, images_u8, labels,
+    valid, lr, flip, dropout_gen=None) -> (state, loss)``, with the branch
+    step's explicit flip mask and dropout generator.  No reweighting: the
+    plain logits have only the local columns, and the JAX server never
+    asks for it here."""
+    margin_fn = MARGINS[margin]
+
+    def step(state: ClientTrainState, images_u8: torch.Tensor,
+             labels: torch.Tensor, valid: torch.Tensor, lr: float,
+             flip: torch.Tensor, dropout_gen: Optional[torch.Generator] = None):
+        labels = labels.long()
+        feats = _forward(state, train_preprocess(flip, images_u8), dropout_gen)
+        loss = softmax_cross_entropy(
+            margin_fn(cosine_logits(feats, state.fc), labels, s, m), labels, valid)
+        _sgd_step(state, loss, lr)
+        return state, loss.detach()
 
     return step
 

@@ -9,6 +9,8 @@ Counterpart of ``fedfr_tpu/parallel/fedavg.py`` (reference server.py:25-46):
   have) are taken from the first client.
 * ``fedavg_on_fc`` — weighted mean of the clients' copies of the shared
   global FC with server interpolation factor p (server.py:36-46).
+* ``spreadout`` — momentum SGD on the SpreadOut regularizer over the
+  sampled clients' local FC rows (server.py:340-371).
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from typing import Dict, Sequence
 
 import numpy as np
 import torch
+
+from ..models.heads import l2_normalize
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -51,3 +55,41 @@ def fedavg_on_fc(pretrain_fc: torch.Tensor, fc_stack: torch.Tensor,
     if p == 1.0:
         return aggr
     return (1.0 - p) * pretrain_fc + p * aggr
+
+
+def spreadout_loss(fc: torch.Tensor, margin: float = 0.4,
+                   mode: str = "mean") -> torch.Tensor:
+    """The SpreadOut objective: ``relu(cos - margin)^2`` over the
+    off-diagonal pairs of the l2-normalized rows, summed (``mode='sum'``)
+    or averaged over the N(N-1) pairs (``'mean'``, masked_select
+    semantics).  The gram matrix is one fp32 product (TF32 must be off, as
+    it is by default), outside any kernel of the TPU package."""
+    fcn = l2_normalize(fc, dim=1)
+    sim = torch.matmul(fcn, fcn.t())
+    n = fc.shape[0]
+    offdiag = ~torch.eye(n, dtype=torch.bool, device=fc.device)
+    sq = torch.where(offdiag, torch.relu(sim - margin), 0.0) ** 2
+    if mode == "sum":
+        return sq.sum()
+    return sq.sum() / (n * (n - 1))
+
+
+def spreadout(fc_all: torch.Tensor, *, margin: float = 0.4, iters: int = 20,
+              lr: float = 0.01, momentum: float = 0.9, weight_decay: float = 5e-4,
+              mode: str = "mean") -> torch.Tensor:
+    """Run ``iters`` momentum-SGD steps of ``spreadout_loss`` on
+    ``fc_all``, the (sum_K C_k, E) concatenation of the sampled clients'
+    local FC rows, and return the new rows.  The weight decay is added to
+    the gradient and the momentum buffer starts at zero (JAX
+    ``fedfr_tpu/parallel/fedavg.py::spreadout``).  Server call sites use
+    margin 0.4, lr = 10x the base lr, 20 iterations, mode 'mean'
+    (server.py:348-349, train.py:81)."""
+    fc = fc_all.detach().float()
+    buf = torch.zeros_like(fc)
+    for _ in range(iters):
+        x = fc.clone().requires_grad_(True)
+        with torch.enable_grad():
+            (grad,) = torch.autograd.grad(spreadout_loss(x, margin, mode), x)
+        buf = momentum * buf + (grad + weight_decay * fc)
+        fc = fc - lr * buf
+    return fc

@@ -23,9 +23,12 @@ Exports are PyTorch's own: ``backbone_<round>.pth`` (at the
 ``--client_ckpt_every`` cadence, and once at the end if the cadence missed
 the final round), each a ``torch.save`` of a state_dict in the reference
 key layout.  A copy of the source goes to ``<output_dir>/code`` at setup.
-The resume state is not written: ``--resume`` and the flags that shape it
-raise, as do the other flags of paths not ported yet, each naming its
-ROADMAP item.
+The resume state goes to ``<output_dir>/rounds/round_<K>.pt`` (+
+``.meta.json``) after each round on the ``--round_ckpt_every`` cadence and
+after the final round, with the ``.bin`` best table; ``--resume`` starts
+from the newest complete one (``utils/checkpoint.py::RoundCheckpointer``;
+``--round_ckpt_keep``, ``--round_ckpt_async``, ``--round_ckpt_bg_fetch``).
+The flags of paths not ported yet raise, each naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from .data.datasets import AllClientData
 from .evalsuite.local_eval import LocalVerificationCallback
 from .evalsuite.verification import BinVerificationCallback
 from .federated.server import Server
+from .utils.checkpoint import RoundCheckpointer
 from .utils.device import resolve_device
 from .utils.logging import init_logging
 from .utils.snapshot import snapshot_source
@@ -70,15 +74,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "preCos_pretrain_labels.pth, preCos_init_AN.pth")
     p.add_argument("--lr", type=float, default=0.1)
     p.add_argument("--aggr_alg", default="FedAvg")
-    p.add_argument("--spreadout", action="store_true",
-                   help="not ported: raises (ROADMAP queue A item 7)")
+    p.add_argument("--spreadout", action="store_true")
     p.add_argument("--init_fc", action="store_true")
     p.add_argument("--add_pretrained_data", action="store_true",
-                   help="required: the plain objective is not ported "
-                        "(ROADMAP queue A item 5)")
+                   help="the joint public-data objective (else the plain "
+                        "objective over each client's own data)")
     p.add_argument("--contrastive_bb", action="store_true")
     p.add_argument("--cache_contrastive", action="store_true",
-                   help="not ported: raises (ROADMAP queue A item 6)")
+                   help="embed the frozen MOON models' features once per "
+                        "(client, round) and gather them per step in place "
+                        "of two frozen forwards (same arithmetic)")
     p.add_argument("--lockstep", type=int, default=1,
                    help="values above 1 are not ported: raise (ROADMAP "
                         "queue A item 13)")
@@ -89,8 +94,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--adaptive_local_epoch", action="store_true")
     p.add_argument("--reweight_cosface", action="store_true")
     p.add_argument("--hn_strategy", default="feature", choices=["feature", "fc"],
-                   help="hard-negative mining: image features, or FC rows "
-                        "('fc' is not ported: raises, ROADMAP queue A item 7)")
+                   help="hard-negative mining: image features, or FC rows")
     p.add_argument("--HN_threshold", default=0.4, type=float,
                    help="feature-mining cosine threshold (config.py:28)")
     p.add_argument("--HN_cap", default=0, type=int,
@@ -105,7 +109,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--embedding_size", default=512, type=int)
     p.add_argument("--image_size", default=112, type=int)
     p.add_argument("--resume", action="store_true",
-                   help="not ported: raises (ROADMAP queue A item 12)")
+                   help="start from the newest complete round state in "
+                        "<output_dir>/rounds")
     p.add_argument("--profile", action="store_true",
                    help="not ported: raises (ROADMAP queue A item 14)")
     p.add_argument("--scan_blocks", action="store_true",
@@ -126,15 +131,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--client_ckpt_every", type=int, default=1,
                    help="save per-client artifacts every N rounds (0 = never)")
     p.add_argument("--round_ckpt_every", type=int, default=1,
-                   help="save backbone_%%d.pth every N rounds (0 = never; "
-                        "the final round always exports)")
+                   help="save backbone_%%d.pth and the resume state every N "
+                        "rounds (0 = never; the final round always exports)")
     p.add_argument("--round_ckpt_keep", type=int, default=0,
-                   help="values above 0 are not ported: raise (ROADMAP "
-                        "queue A item 12)")
+                   help="keep only the newest N resume states (0 = all)")
     p.add_argument("--round_ckpt_async", action="store_true",
-                   help="not ported: raises (ROADMAP queue A item 12)")
+                   help="write the resume state in a background thread")
     p.add_argument("--round_ckpt_bg_fetch", action="store_true",
-                   help="not ported: raises (ROADMAP queue A item 12)")
+                   help="also copy the resume state to the host in that "
+                        "thread (implies --round_ckpt_async)")
     # dead reference flags, accepted as no-ops so verbatim reference
     # commands run (reference train.py:109-123)
     p.add_argument("--fedface", action="store_true", help="no-op (reference dead flag)")
@@ -155,10 +160,6 @@ def build_parser() -> argparse.ArgumentParser:
 def check_flags(args) -> None:
     """Raise on every flag whose path the port does not have yet."""
     unported = {
-        "--resume (the resume state, ROADMAP queue A item 12)": args.resume,
-        "--round_ckpt_async (ROADMAP queue A item 12)": args.round_ckpt_async,
-        "--round_ckpt_bg_fetch (ROADMAP queue A item 12)": args.round_ckpt_bg_fetch,
-        "--round_ckpt_keep > 0 (ROADMAP queue A item 12)": args.round_ckpt_keep > 0,
         "--lockstep > 1 (ROADMAP queue A item 13)": args.lockstep > 1,
         "--remat (ROADMAP queue A item 13)": args.remat,
         "--profile (ROADMAP queue A item 14)": args.profile,
@@ -299,6 +300,7 @@ class Training:
     bin_cb: Optional[BinVerificationCallback]
     local_cb: Optional[LocalVerificationCallback]
     spent: Dict[str, float]  # seconds by phase, filled by the callbacks
+    ckpt: RoundCheckpointer  # the resume state
 
     @property
     def done(self) -> bool:
@@ -313,9 +315,6 @@ def setup(args) -> Training:
     logger = init_logging(cfg.runtime.output_dir)
     logger.info("config: %s", cfg.to_json())
     snapshot_source(cfg.runtime.output_dir)  # reference train.py:50-51
-    logger.info("the resume state is not written by the PyTorch package "
-                "(ROADMAP queue A item 12): a stopped run starts again from "
-                "round 0")
     if args.scan_blocks or args.device_cache:
         logger.info("--scan_blocks and --device_cache have no effect here: "
                     "the port's modules have one layout and its states stay "
@@ -325,8 +324,28 @@ def setup(args) -> Training:
     spent = {"local_eval": 0.0}
     bin_cb, local_cb = attach_callbacks(cfg, server, data, logger, spent)
     logger.info("local veri candidates %s", server.local_candidates)
+    ckpt = RoundCheckpointer(os.path.join(cfg.runtime.output_dir, "rounds"),
+                             keep=cfg.runtime.round_ckpt_keep,
+                             async_write=cfg.runtime.round_ckpt_async,
+                             bg_fetch=cfg.runtime.round_ckpt_bg_fetch)
+    if args.resume:
+        t0 = time.perf_counter()
+        if ckpt.latest() is None:
+            logger.info("--resume: no complete round state in %s, starting "
+                        "at round 0", ckpt.directory)
+        else:
+            restored = ckpt.restore(server)
+            if server.device.type == "cuda":
+                torch.cuda.synchronize(server.device)
+            logger.info("resumed at round %d (restore %.3f s)", restored,
+                        time.perf_counter() - t0)
+            # the best table too, so that the first round after the resume
+            # cannot pass for the best one and overwrite backbone.pth
+            best = ckpt.last_extra.get("best")
+            if bin_cb is not None and best and len(best) == len(bin_cb.highest):
+                bin_cb.highest = [tuple(b) for b in best]
     logger.info("=== Start Federated learning ===")
-    return Training(cfg, logger, server, bin_cb, local_cb, spent)
+    return Training(cfg, logger, server, bin_cb, local_cb, spent, ckpt)
 
 
 def run_round(t: Training) -> Dict:
@@ -357,31 +376,61 @@ def run_round(t: Training) -> Dict:
     if cce and rnd % cce == 0:
         server.save_client_checkpoints(out)
     server.advance_round()
+    # the resume state, on the JAX CLI's cadence (train.py:230-238): after
+    # advance_round, so round_<K> is the next round to run
+    ckpt_s = None
+    if rce and (rnd % rce == 0 or rnd == cfg.fed.total_rounds - 1):
+        t0 = time.perf_counter()
+        t.ckpt.save(server, extra={
+            "best": [list(h) for h in t.bin_cb.highest] if t.bin_cb else []})
+        ckpt_s = time.perf_counter() - t0
     local_s = t.spent["local_eval"]
     logger.info("round %d: train_round %.3f s (of which local eval %.3f s), "
-                "bin eval %.3f s", rnd, train_s, local_s, bin_s)
+                "bin eval %.3f s, resume-state save %s s", rnd, train_s, local_s,
+                bin_s, "none" if ckpt_s is None else f"{ckpt_s:.3f}")
     return {"round": rnd, "clients": clients, "avg_loss": stats["avg_loss"],
             "train_round_s": train_s, "local_eval_s": local_s,
-            "bin_eval_s": bin_s, "acc": result["acc"] if result else None}
+            "bin_eval_s": bin_s, "ckpt_save_s": ckpt_s,
+            "acc": result["acc"] if result else None}
 
 
 def finish(t: Training) -> None:
-    """After the last round: the per-client exports, if the cadence did not
-    capture the final round (the post-training personalized evals need every
-    client's backbone and converter)."""
+    """After the last round: join the resume state's writer, then the
+    per-client exports, if the cadence did not capture the final round (the
+    post-training personalized evals need every client's backbone and
+    converter)."""
     cfg, server = t.cfg, t.server
+    t.ckpt.wait()
     cce = cfg.runtime.client_ckpt_every
     if t.done and not (cce and (cfg.fed.total_rounds - 1) % cce == 0):
-        t.logger.info("saving final per-client checkpoints")
-        server.save_client_checkpoints(cfg.runtime.output_dir)
+        trained = [c.cid for c in server.clients if c.trained_backbone is not None]
+        missing = [c.cid for c in server.clients if c.trained_backbone is None]
+        if not trained:
+            t.logger.warning("no trained client states in this process "
+                             "(resumed after completion?): final per-client "
+                             "checkpoints not written")
+        else:
+            t.logger.info("saving final per-client checkpoints (%d clients)",
+                          len(trained))
+            if missing:
+                t.logger.warning(
+                    "clients %s were not trained in this process (resume "
+                    "after restart with partial sampling?): their final "
+                    "checkpoints are missing and local_all --backbone multi "
+                    "will fail for them", missing)
+            server.save_client_checkpoints(cfg.runtime.output_dir)
     t.logger.info("training done")
 
 
 def main(args) -> List[Dict]:
     t = setup(args)
     history = []
-    while not t.done:
-        history.append(run_round(t))
+    try:
+        while not t.done:
+            history.append(run_round(t))
+    finally:
+        # join an outstanding resume-state write even when a round raises
+        t.ckpt.wait()
     finish(t)
     return history
 

@@ -3,8 +3,8 @@
 * its parser accepts every flag of the repository's train.py (read by AST);
 * ``build_config`` gives the JAX CLI's config from the same arguments;
 * flags of paths not ported raise ``NotImplementedError`` naming their
-  ROADMAP item, and the CLI and the eval callbacks default to ``cuda`` and
-  raise without it;
+  ROADMAP item, the resume-state flags run, and the CLI and the eval
+  callbacks default to ``cuda`` and raise without it;
 * two toy rounds through ``main`` on data written by chip_smoke.py's own
   writers: local_log.txt as parse_log.py reads it (the epoch -1 baseline,
   then one entry per round), the .bin accuracy, training.log and the .pth
@@ -64,10 +64,6 @@ def test_build_config_matches_jax_cli():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--resume"], "item 12"),
-    (["--round_ckpt_async"], "item 12"),
-    (["--round_ckpt_bg_fetch"], "item 12"),
-    (["--round_ckpt_keep", "2"], "item 12"),
     (["--lockstep", "2"], "item 13"),
     (["--remat"], "item 13"),
     (["--profile"], "item 14"),
@@ -77,6 +73,30 @@ def test_unported_flags_raise(argv, item, tmp_path):
         argv + ["--output_dir", str(tmp_path), "--device", "cpu"])
     with pytest.raises(NotImplementedError, match=item):
         train_cli.main(args)
+
+
+@pytest.mark.parametrize("argv,rounds_left", [
+    (["--resume"], [0]),
+    (["--round_ckpt_async"], [0, 1]),
+    (["--round_ckpt_bg_fetch"], [0, 1]),
+    (["--round_ckpt_keep", "1"], [1]),
+])
+def test_resume_state_flags_run(argv, rounds_left, smoke_root, tmp_path):
+    """The resume flags parse and run two toy rounds (one round for
+    ``--resume`` on a fresh directory, which starts at round 0 and says so);
+    the complete round states left behind follow ``--round_ckpt_keep``."""
+    out = str(tmp_path / "run")
+    total = 1 if "--resume" in argv else 2
+    args = train_cli.build_parser().parse_args(
+        _argv(smoke_root, out) + argv + ["--total_round", str(total)])
+    history = train_cli.main(args)
+    assert [h["round"] for h in history] == list(range(total))
+    assert all(np.isfinite(h["avg_loss"]) for h in history)
+    rounds = sorted(f for f in os.listdir(os.path.join(out, "rounds")))
+    assert rounds == sorted(f"round_{r + 1}{x}" for r in rounds_left
+                            for x in (".pt", ".meta.json"))
+    log = open(os.path.join(out, "training.log")).read()
+    assert ("no complete round state" in log) == ("--resume" in argv)
 
 
 def test_cli_and_callbacks_raise_without_cuda(monkeypatch, tmp_path):
@@ -131,13 +151,15 @@ def test_main_runs_two_rounds_with_eval(smoke_root, tmp_path):
         assert all(len(t) == 6 for _, t in acc[cid * IDS])
     log = open(os.path.join(out, "training.log")).read()
     assert "Training: " in log and "====== Round 1 ======" in log
-    assert "resume state is not written" in log
+    assert "resumed at" not in log and "--resume" not in log
     assert "[agedb_30][1]Accuracy-Flip" in log and "training done" in log
     for f in ["backbone_0.pth", "backbone_1.pth", "backbone.pth",
               "clients/client_0/backbone.pth", "clients/client_1/bce_module.pth"]:
         assert os.path.exists(os.path.join(out, f)), f
     sd = torch.load(os.path.join(out, "backbone_1.pth"))
     assert set(sd) == set(ToyNet(16).state_dict())
+    for r in (1, 2):  # the resume state after each round
+        assert os.path.exists(os.path.join(out, "rounds", f"round_{r}.meta.json"))
     bce = torch.load(os.path.join(out, "clients", "client_0", "bce_module.pth"))
     assert set(bce) == {"weight", "bias", "converter.0.weight", "converter.0.bias"}
 
@@ -216,3 +238,17 @@ def test_chip_smoke_pretrained_and_local_all_phases_rehearsed_on_cpu(smoke_root,
     assert chip_smoke.phase_local_all(out, smoke_root, CLIENTS, IDS, "iresnet18", 16,
                                       converter_layer=2, device="cpu",
                                       batch=16) == {"max_sim": 0, "roc_hist": 0}
+
+
+def test_chip_smoke_paths_phase_rehearsed_on_cpu(smoke_root):
+    """The smoke's phase 7 at toy size on the CPU: cached contrastive +
+    SpreadOut (with the cached step held against the recompute step at
+    1e-5), resume twice (bitwise restore, the replayed client sample, one
+    state kept under --round_ckpt_keep 1), FC-row mining and the plain
+    objective, with their checks; no launch is counted here."""
+    by_part = chip_smoke.phase_paths(smoke_root, CLIENTS, IDS, device="cpu",
+                                     network="toy", embedding=16, image_size=IMG,
+                                     batch=8, local_epochs=1, eval_batch=16)
+    assert list(by_part) == ["7a_cached_spreadout", "7b_resume", "7c_fc_mining",
+                             "7d_plain"]
+    assert all(v == {"max_sim": 0, "roc_hist": 0} for v in by_part.values())

@@ -67,12 +67,36 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         embed_dataset(ToyNet(8), dataset=None)
 
 
-def test_unported_options_raise():
+@pytest.fixture(scope="module")
+def tiny_root(tmp_path_factory):
+    import chip_smoke
+
+    root = str(tmp_path_factory.mktemp("torch_package"))
+    chip_smoke.write_fl_split(root, 2, 3, imgs_per_id=4, pub_ids=4, pub_imgs=2,
+                              size=16, seed=0, veri_imgs=2)
+    return root
+
+
+@pytest.mark.parametrize("option", ["plain", "spreadout", "fc", "cache_contrastive"])
+def test_unported_options_raise(option, tiny_root):
+    """The four ``Server`` options that raised before the paths of the
+    plain objective, SpreadOut, FC-row mining and the cached contrastive
+    step were ported: the server now builds on the CPU under each, with a
+    global FC exactly when the joint objective needs one."""
     from fedfr_tpu_torch.config import FedFRConfig
+    from fedfr_tpu_torch.data import AllClientData
     from fedfr_tpu_torch.federated import Server
 
     cfg = FedFRConfig()
     cfg.runtime.device = "cpu"
-    cfg.fed.spreadout = True
-    with pytest.raises(NotImplementedError, match="spreadout"):
-        Server(cfg, data=None)
+    cfg.data.rec_root = tiny_root
+    cfg.data.num_clients, cfg.data.num_ids = 2, 6
+    cfg.data.image_size, cfg.data.num_workers = 16, 1
+    cfg.model.network, cfg.model.embedding_size = "toy", 8
+    cfg.fed.add_pretrained_data = option != "plain"
+    cfg.fed.spreadout = option == "spreadout"
+    cfg.fed.hn_strategy = "fc" if option == "fc" else "feature"
+    cfg.fed.cache_contrastive = option == "cache_contrastive"
+    server = Server(cfg, AllClientData(cfg))
+    assert len(server.clients) == 2
+    assert (server.pretrained_fc is None) == (option == "plain")
