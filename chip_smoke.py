@@ -32,6 +32,14 @@ Phases, in order (any failure raises and the script exits non-zero):
      (blocks, blocks per SM, waves) logged, and the SM clock and power
      sampled (nvidia-smi) over 60 launches, to show whether the card
      throttles under the kernel.
+   * synth_gen (the synth: image generator, JAX's threefry): 0 differing
+     bytes against the plain version on 4,096 images of the reference
+     universe (``synth:``; client, blended-public and veri positions) and on
+     1,024 with expr=0.5, shift_div=4; the kernel and the plain version
+     timed per 512-image batch; one whole 420,671-image public pass timed
+     twice, the kernel alone over the pass's 822 batches (CUDA events) and
+     through the dataset's own batches (wall clock); the bound from the
+     instructions the function needs, by the rate of each pipe they share.
 4. round   — writes a seeded rec split, a seeded local verification split
    and a seeded agedb_30.bin to a temporary directory and runs two rounds
    through the training CLI's own loop (``fedfr_tpu_torch.train``: setup,
@@ -42,9 +50,11 @@ Phases, in order (any failure raises and the script exits non-zero):
    just before and read just after.  Checks finite losses, a changed global
    model, one mining launch per client per round, one ROC launch per
    candidate per round plus the baselines, local_log.txt lines that
-   parse_log.py reads, finite accuracies and the .pth exports.  The last
-   round runs under torch.profiler and prints its device time by kernel (so
-   its seconds include the profiler's cost).
+   parse_log.py reads, finite accuracies, the .pth exports, and the
+   phase-span report and memory line in training.log after each round.
+   The CLI's --profile traces round 0: the trace file must exist and its
+   device events name both kernels; its device time is printed by kernel
+   (the round's seconds include the profiler's cost).
 5. pretrained — writes a pretrained root with the smoke's own writer (a
    seeded iresnet100 / E=512 state_dict in the reference layout as
    backbone.pth, an fc.pth over the public IDs, the public labels) and runs
@@ -89,14 +99,32 @@ Phases, in order (any failure raises and the script exits non-zero):
    7d  the plain objective (no --add_pretrained_data, --batch_size 64), 1
        round: no mining launch, the candidates' ROC launches, each client's
        FedAvg weight its own set's size.
+8. reference — run.sh's round at the reference's data scale on the synth:
+   universe at its defaults (--rec_root synth: --local_rec synth:: 40
+   clients x 100 IDs x 61-69 images, 420,671 public images over 6,000 IDs,
+   4,000 x 40 veri images), sphere64 / E=512 / bf16 trunk / batch 256,
+   run.sh's federated flags, random weights from seed 100, the .bin of
+   phase 4; through the CLI's setup, run_round and finish, launch counts
+   set to 0 before the round and read after.  Checks every mining launch at
+   420,671 x n_loc x 512 and every ROC launch at 4,000 x 160,000 x 512,
+   that every synth: batch of the round was a synth_gen launch, finite
+   losses and accuracy, the span report and the memory line; prints the
+   round, train, local-eval and .bin seconds, the phase spans and the peak
+   memory.  Cuts: --client_sampled_ratio 0.05 (2 of 40 clients),
+   --local_epoch 1, 1 round, --HN_cap 6500 (at random weights mining keeps
+   nearly the whole public set), the local-eval candidates cut from 10 to 1
+   by this script (the first sampled client), no resume state and no
+   per-round client exports (--round_ckpt_every 0 --client_ckpt_every 0).
 
-The line before the last is a JSON object with every ported kernel (its
-``launches`` summed over phases 4-7, and by phase, 7a-7d apart); the last
-line is the device record.  Widths are the reference's (sphere64 and iresnet100, E=512,
+The line before the last is a JSON object with every hand-written kernel
+(its ``launches`` summed over phases 4-8, and by phase, 7a-7d apart); the
+last line is the device record.  Widths are the reference's (sphere64 and iresnet100, E=512,
 112x112, batch 256); counts are cut:
-  * 2 clients x 100 IDs x 8 train images (reference: 40 clients x 100 IDs);
+  * (phases 4-7; phase 8 runs the reference's data, cut as listed there)
+    2 clients x 100 IDs x 8 train images (reference: 40 clients x 100 IDs);
   * a 4,000-image public set, 2,000 IDs x 2 (reference: 420,671 images);
-  * 2 local epochs, then 4; 2 rounds (reference: 10 epochs, 20 rounds);
+  * (phases 4-7) 2 local epochs (phase 4: 1, so that the traced round 0
+    stays small), then 4; 2 rounds (reference: 10 epochs, 20 rounds);
     the iresnet100 round: 2 local epochs, 1 round; phase 7: 2 local epochs
     then 4, 2 rounds for 7a, 1 round for each other part;
   * local_veri: 2 clients x 100 IDs x 10 images (reference: 4,000 IDs x 40);
@@ -123,23 +151,57 @@ import time
 import numpy as np
 import torch
 
+import fedfr_tpu_torch.federated.embed as embed_mod
 import fedfr_tpu_torch.ops.max_sim as max_sim_mod
 import fedfr_tpu_torch.ops.roc_hist as roc_hist_mod
+import fedfr_tpu_torch.ops.roc_histogram as roc_histogram_mod
+import fedfr_tpu_torch.ops.synth_gen as synth_gen_mod
 from fedfr_tpu_torch import local_all as local_all_cli
 from fedfr_tpu_torch import train as train_cli
-from fedfr_tpu_torch.data import codec, write_split
+from fedfr_tpu_torch.data import codec, synthetic, write_split
 from fedfr_tpu_torch.data.pipeline import DevicePrefetcher
 from fedfr_tpu_torch.federated.trainer import branch_step_for, init_client_state
 from fedfr_tpu_torch.models import build_backbone
 from fedfr_tpu_torch.ops._build import build_kernels, build_seconds, ptxas_info
 from fedfr_tpu_torch.ops.roc_histogram import tpr_at_fpr_table
 from fedfr_tpu_torch.utils.checkpoint import RoundCheckpointer
+from fedfr_tpu_torch.utils.profiling import TRACE_FILE
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, fp32
 # operations/s outside the tensor cores, bf16 operations/s on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12
+# Hopper's instruction rates on 132 SMs at 1.98 GHz (CUDA C++ Programming
+# Guide, arithmetic instruction throughput, compute capability 9.0): each SM
+# issues 4 warp instructions (128 lanes) a clock whatever their pipe; 64
+# lanes of those are the INT32 ALU pipe's (logic, shifts); 32-bit type
+# conversions run at 16 lanes
+ISSUE_OPS_PER_S = 132 * 128 * 1.98e9
+ALU_OPS_PER_S = 132 * 64 * 1.98e9
+CONVERT_OPS_PER_S = 132 * 16 * 1.98e9
+
+# synth_gen's least work per output byte, counted from the function the
+# kernel computes (its loop and index arithmetic left out: a kernel could
+# walk the pre-roll positions, so that its counter is the noise's flat
+# index).  Two threefry2x32 hashes at counter (0, idx), each of 20 rounds of
+# an add, a rotation and a xor, 10 injection adds (their key sums are per
+# image, computed once), 1 add of the key to the counter's low word (the
+# high word's is a constant) and the xor of its two output words: 31 adds,
+# 20 rotations and 21 xors; randint's three remainders by the span (2
+# instructions each at least: a multiply-high by a reciprocal computed once
+# and a multiply-add), its multiply-add and its add of minval: 8; the float
+# add, multiply and add: 3 (the clamp can ride on a saturating conversion);
+# the noise's conversion to float and the value's to u8: 2.  Only the xors
+# must issue on the ALU pipe: a rotation issues as a funnel shift there or
+# as a wide multiply by 2^r on the FMA pipe, its or merged into the xor's
+# three-input LOP3; adds and multiplies issue on either.
+SYNTH_OPS_PER_BYTE = 2 * (31 + 20 + 21) + 8 + 3 + 2
+SYNTH_ALU_OPS_PER_BYTE = 2 * 21
+SYNTH_CONVERSIONS_PER_BYTE = 2
+KERNEL_COUNTERS = {"max_sim": (max_sim_mod, "max_sim_launches"),
+                   "roc_hist": (roc_hist_mod, "roc_hist_launches"),
+                   "synth_gen": (synth_gen_mod, "synth_gen_launches")}
 
 # mining: bf16 operands, fp32 sums.  Against the plain version on the same
 # bf16 operands only the order of the fp32 sums differs; against the fp32
@@ -164,6 +226,16 @@ ONE_TO_N_PATTERNS = (re.compile(r"1:n at Epoch : (-?\d+)$"),
                                 r"'1\.0e-03'\]$"),
                      re.compile(r"Pr : \[('\d\.\d{5}'(, )?){4}\]$"))
 SINGLE_PATTERN = re.compile(r"1:1 at Epoch : (-?\d+)$")
+
+
+def zero_launches() -> None:
+    """Every kernel's launch count set to 0."""
+    for mod, attr in KERNEL_COUNTERS.values():
+        setattr(mod, attr, 0)
+
+
+def read_launches() -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in KERNEL_COUNTERS.items()}
 
 
 def log(phase: str, **fields) -> None:
@@ -231,7 +303,7 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    build_kernels(["max_sim", "roc_hist"])
+    build_kernels(list(KERNEL_COUNTERS))
     log("build", seconds=f"{time.perf_counter() - t0:.2f}",
         per_kernel={k: round(v, 2) for k, v in build_seconds.items()})
     for name, info in ptxas_info.items():
@@ -530,6 +602,114 @@ def phase_roc(n: int, t: int, e: int) -> dict:
     return record
 
 
+def _synth_vectors(universe: dict, n: int, seed: int):
+    """Generator inputs of ``n`` random positions spread over a client, the
+    public set (blended identities among them) and the veri set, as card
+    tensors."""
+    rng = np.random.default_rng(seed)
+    parts = [(universe["clients"][7], n // 4), (universe["public"], n // 2),
+             (universe["veri"], n - n // 4 - n // 2)]
+    vecs = [np.concatenate(v) for v in zip(*[
+        ds.synth_vectors(rng.integers(0, len(ds), k))[:5] for ds, k in parts])]
+    return [torch.from_numpy(v).cuda() for v in vecs]
+
+
+def check_synth_gen(spec: str, n: int, seed: int) -> dict:
+    """The kernel against its plain version on ``n`` images of the spec's
+    universe, 512 at a time: 0 differing bytes."""
+    universe = synthetic.build_fl_synthetic(synthetic.parse_synth_spec(spec), "cuda")
+    ds = universe["public"]
+    args = (synth_gen_mod.tf.prng_key(ds.seed), ds.image_size, ds.noise, ds.block,
+            ds.expr, ds.shift_div)
+    vecs = _synth_vectors(universe, n, seed)
+    diff, err = 0, 0
+    for s0 in range(0, n, 512):
+        part = [v[s0:s0 + 512] for v in vecs]
+        got = synth_gen_mod.synth_generate(*part, *args)
+        want = synth_gen_mod.synth_generate_plain(*part, *args)
+        diff += int((got != want).sum())
+        err = max(err, int((got.int() - want.int()).abs().max()))
+    blended = int((vecs[3] > 0).sum())
+    log("kernels", case=f"synth_gen {spec} {n} images", differing_bytes=diff,
+        max_abs_err=err, bytes=n * ds.image_size ** 2 * 3, blended_images=blended)
+    if diff:
+        raise AssertionError(f"synth_gen {spec}: {diff} bytes differ from the plain version")
+    return {"universe": universe, "vecs": vecs, "args": args, "differing_bytes": diff,
+            "max_abs_err": err}
+
+
+def synth_bound_ms(nbytes: int) -> dict:
+    """The least time of the generator's work for ``nbytes`` output bytes:
+    the larger of its bytes over HBM and its instructions over each rate
+    they must share (every pipe's issue, the ALU pipe, conversions)."""
+    parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "issue": nbytes * SYNTH_OPS_PER_BYTE / ISSUE_OPS_PER_S * 1e3,
+             "alu": nbytes * SYNTH_ALU_OPS_PER_BYTE / ALU_OPS_PER_S * 1e3,
+             "conversions": nbytes * SYNTH_CONVERSIONS_PER_BYTE / CONVERT_OPS_PER_S * 1e3}
+    return {**parts, "bound_ms": max(parts.values()),
+            "bound_by": "bytes" if max(parts, key=parts.get) == "bytes" else "operations"}
+
+
+def phase_synth_gen(n_public: int) -> dict:
+    """The generator's gate (bitwise, on 4,096 images of the reference
+    universe and 1,024 with expr=0.5, shift_div=4), its times per 512-image
+    batch (kernel, plain version), and one whole public pass of
+    ``n_public`` images, measured twice: the kernel alone over the pass's
+    own batches (their vectors on the card first; CUDA events), and through
+    the dataset's own batches (host vectors and their copy included; wall
+    clock); each beside its bound."""
+    launches = synth_gen_mod.synth_gen_launches
+    ref = check_synth_gen("synth:", 4096, seed=21)
+    small = check_synth_gen("synth:expr=0.5,shift_div=4", 1024, seed=22)
+    batch = [v[:512] for v in ref["vecs"]]
+    args = ref["args"]
+    ms = cuda_ms(lambda: synth_gen_mod.synth_generate(*batch, *args), 7,
+                 "synth_gen kernel, 512 images", batch=20)
+    plain_ms = cuda_ms(lambda: synth_gen_mod.synth_generate_plain(*batch, *args), 3,
+                       "synth_gen plain, 512 images")
+    public = ref["universe"]["public"]
+    starts = range(0, n_public, 512)
+    vecs = [torch.from_numpy(v).cuda()
+            for v in public.synth_vectors(np.arange(n_public))[:5]]
+
+    def kernel_pass():
+        for s0 in starts:
+            synth_gen_mod.synth_generate(*[v[s0:s0 + 512] for v in vecs], *args)
+
+    pass_ms = cuda_ms(kernel_pass, 1, f"synth_gen kernel, the {n_public}-image public pass")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s0 in starts:
+        public.device_batch(np.arange(s0, min(s0 + 512, n_public)))
+    torch.cuda.synchronize()
+    pass_s = time.perf_counter() - t0
+    synth_gen_mod.synth_gen_launches = launches
+    size = public.image_size
+    bound = synth_bound_ms(512 * size * size * 3)
+    pass_bound = synth_bound_ms(n_public * size * size * 3)
+    record = {
+        "name": "synth_gen", "route": "cuda",
+        "source": "fedfr_tpu_torch/csrc/synth_gen.cu",
+        "replaces": "fedfr_tpu/data/synthetic.py:83 (XLA-fused jitted gen; no Pallas kernel)",
+        "launches": None,
+        "max_abs_err": max(ref["max_abs_err"], small["max_abs_err"]),
+        "differing_bytes": ref["differing_bytes"] + small["differing_bytes"],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"], "library_ms": None, "batch_images": 512,
+        "public_pass_images": n_public, "public_pass_batches": len(starts),
+        "public_pass_kernel_ms": pass_ms, "public_pass_s": pass_s,
+        "public_pass_bound_ms": pass_bound["bound_ms"],
+    }
+    log("kernels", shape=f"synth_gen 512x{size}x{size}x3", ms=ms, plain_ms=plain_ms,
+        **{f"{k}_bound_ms": v for k, v in bound.items() if k not in ("bound_ms", "bound_by")},
+        bound_ms=bound["bound_ms"], bound_share=bound["bound_ms"] / ms,
+        public_pass_kernel_ms=pass_ms, public_pass_s=pass_s,
+        public_pass_batches=len(starts), public_pass_bound_ms=pass_bound["bound_ms"])
+    del ref, small, batch, vecs
+    torch.cuda.empty_cache()
+    return record
+
+
 # ---------------------------------------------------------------- phase 4
 
 def _patterns(rng: np.random.Generator, n_ids: int, size: int) -> np.ndarray:
@@ -675,30 +855,6 @@ def pretrained_args(root: str, n_clients: int, ids: int, pre: str,
                                      "--converter_layer", "2", "--fedface"]
 
 
-def device_breakdown(prof, wall_s: float, top: int = 8) -> None:
-    """Device time of a profiled round by kernel name, and the share of the
-    round's wall time the device was busy (one stream, so the sum of kernel
-    and copy times)."""
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    if not by_name:
-        log("profile", device_time="not measured (the profiler saw no device events)")
-        return
-    busy_ms = sum(by_name.values())
-    log("profile", wall_s=f"{wall_s:.3f}", device_busy_ms=f"{busy_ms:.1f}",
-        device_busy_share=f"{busy_ms / 1e3 / wall_s:.3f}", kernels=len(by_name))
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
-        log("profile", ms=f"{ms:.1f}", share=f"{ms / busy_ms:.3f}", kernel=name[:90])
-    # where the host spends the round (self CPU time of the top operators;
-    # the profiler's own per-operator cost inflates these)
-    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
-    for e in host[:top]:
-        log("profile", host_ms=f"{e.self_cpu_time_total / 1e3:.1f}",
-            calls=e.count, op=e.key[:60])
-
-
 def check_local_logs(out_dir: str, candidates: list, rounds: int) -> None:
     """Every local_log.txt line matches one of parse_log.py's two patterns,
     and each candidate has its baseline plus one table per round."""
@@ -733,10 +889,64 @@ def check_exports(out_dir: str, rounds: int, candidates: list) -> None:
                                           recursive=True)))
 
 
-def phase_round(argv: list, profile: bool = True) -> dict:
+# the Chrome trace's categories of device work (torch.profiler's export)
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def check_trace(trace_dir: str, wall_s: float, on_card: bool, top: int = 8) -> None:
+    """The CLI's ``--profile`` output, read from the file it writes: the
+    Chrome trace of round 0 exists, and on the card its device events name
+    both kernels of the round; logs the device time by kernel name and the
+    share of the round's wall time the device was busy (one stream, so the
+    sum of kernel and copy times)."""
+    path = os.path.join(trace_dir, TRACE_FILE)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    by_name: dict = {}
+    for e in events:
+        if e.get("cat") in DEVICE_CATEGORIES:
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e.get("dur", 0.0) / 1e3
+    named = {k: any(f"{k}_kernel" in n for n in by_name) for k in ("max_sim", "roc_hist")}
+    log("round", trace=path, trace_mb=f"{os.path.getsize(path) / 1e6:.1f}",
+        device_event_names=len(by_name), names_kernels=named)
+    if on_card and not all(named.values()):
+        raise AssertionError(f"the trace's device events do not name {named}")
+    if not by_name:
+        log("profile", device_time="not measured (the trace holds no device events)")
+        return
+    busy_ms = sum(by_name.values())
+    log("profile", wall_s=f"{wall_s:.3f}", device_busy_ms=f"{busy_ms:.1f}",
+        device_busy_share=f"{busy_ms / 1e3 / wall_s:.3f}", kernels=len(by_name))
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        log("profile", ms=f"{ms:.1f}", share=f"{ms / busy_ms:.3f}", kernel=name[:90])
+
+
+SPAN_RE = re.compile(r"-span (\S+)\s+total\s+(\S+)s  calls\s+(\d+)")
+MEMORY_RE = re.compile(r"-(memory: device .*)$")
+
+
+def check_round_log(out_dir: str, rounds: int) -> dict:
+    """training.log has the phase-span report and the memory line after
+    every round; returns the last report ({span: seconds}) and logs it."""
+    with open(os.path.join(out_dir, "training.log")) as f:
+        lines = f.read().splitlines()
+    memory = [m.group(1) for m in map(MEMORY_RE.search, lines) if m]
+    spans = [m.groups() for m in map(SPAN_RE.search, lines) if m]
+    if len(memory) != rounds or not any(name.startswith("phase/") for name, _, _ in spans):
+        raise AssertionError(f"training.log: {len(memory)} memory lines for {rounds} "
+                             f"rounds, span report {spans[:3]}")
+    last = {}
+    for name, total, calls in spans:  # later reports overwrite earlier ones
+        last[name] = float(total)
+    log("round", log_spans=json.dumps(last), memory=memory[-1])
+    return last
+
+
+def phase_round(argv: list) -> dict:
     """The training CLI's rounds (its setup, run_round and finish, as its
-    main runs them), the last one profiled if ``profile``; returns the
-    kernel launches counted over the rounds."""
+    main runs them); with ``--profile`` in ``argv`` round 0 is traced by the
+    CLI and its device time broken down here.  Returns the kernel launches
+    counted over the rounds."""
     args = train_cli.build_parser().parse_args(argv)
     t0 = time.perf_counter()
     run = train_cli.setup(args)
@@ -750,25 +960,21 @@ def phase_round(argv: list, profile: bool = True) -> dict:
         candidates=server.local_candidates)
     before = {k: v.detach().clone() for k, v in server.global_net.state_dict().items()}
 
-    max_sim_mod.max_sim_launches = 0
-    roc_hist_mod.roc_hist_launches = 0
+    zero_launches()
     while not run.done:
-        last = server.global_round == cfg.fed.total_rounds - 1
-        profiling = profile and last and cfg.runtime.device == "cuda"
-        prof = (torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
-            if profiling else contextlib.nullcontext())
+        profiled = run.trace_dir is not None and server.global_round == 0
         if cfg.runtime.device == "cuda":
             torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
-        with prof:
-            rec = train_cli.run_round(run)
-            sync()
+        rec = train_cli.run_round(run)
+        sync()
         seconds = time.perf_counter() - t
         peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.2f}"
                 if cfg.runtime.device == "cuda" else "not measured")
-        if profiling:
-            device_breakdown(prof, seconds)
+        if profiled:
+            # the CLI's trace of round 0 (its seconds include the profiler's
+            # cost and the trace's export)
+            check_trace(run.trace_dir, rec["train_round_s"], cfg.runtime.device == "cuda")
         clients = [server.clients[c] for c in rec["clients"]]
         log("round", round=rec["round"], seconds=f"{seconds:.2f}",
             train_s=f"{rec['train_round_s'] - rec['local_eval_s']:.3f}",
@@ -785,9 +991,9 @@ def phase_round(argv: list, profile: bool = True) -> dict:
         if not (rec["acc"] and all(math.isfinite(a) and 0.0 <= a <= 1.0
                                    for a in rec["acc"])):
             raise AssertionError(f"bin accuracy {rec['acc']}")
-    launches = {"max_sim": max_sim_mod.max_sim_launches,
-                "roc_hist": roc_hist_mod.roc_hist_launches}
+    launches = read_launches()
     train_cli.finish(run)
+    check_round_log(cfg.runtime.output_dir, cfg.fed.total_rounds)
 
     after = server.global_net.state_dict()
     changed = max(float((after[k].float() - v.float()).abs().max())
@@ -798,7 +1004,8 @@ def phase_round(argv: list, profile: bool = True) -> dict:
         raise AssertionError(f"global model finite={finite} max change={changed}")
     rounds = cfg.fed.total_rounds
     expected = {"max_sim": cfg.data.num_clients * rounds,
-                "roc_hist": len(server.local_candidates) * (rounds + 1)}
+                "roc_hist": len(server.local_candidates) * (rounds + 1),
+                "synth_gen": 0}
     log("round", launches=launches, expected=expected, global_max_change=changed)
     if cfg.runtime.device == "cuda" and launches != expected:
         raise AssertionError(f"kernel launches {launches}, expected {expected} "
@@ -814,7 +1021,7 @@ def phase_pretrained(argv: list) -> dict:
     (``phase_round`` with its checks, unprofiled), then the three "loaded
     ..." lines of the JAX package's Server in training.log; returns the
     kernel launches counted over the round."""
-    launches = phase_round(argv, profile=False)
+    launches = phase_round(argv)
     out = argv[argv.index("--output_dir") + 1]
     pre = argv[argv.index("--pretrained_root") + 1]
     with open(os.path.join(out, "training.log")) as f:
@@ -865,8 +1072,7 @@ def phase_local_all(out_dir: str, data_root: str, n_clients: int, ids: int,
             "--converter_layer", str(converter_layer), "--batch_size", str(batch),
             "--device", device]
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    max_sim_mod.max_sim_launches = 0
-    roc_hist_mod.roc_hist_launches = 0
+    zero_launches()
     for backbone, task, epoch in (("multi", "1:1", -1), ("multi", "1:n", -1),
                                   ("single", "1:1", 0)):
         before = roc_hist_mod.roc_hist_launches
@@ -884,8 +1090,7 @@ def phase_local_all(out_dir: str, data_root: str, n_clients: int, ids: int,
                                  f"launches, expected {expected}")
         if not all(math.isfinite(v) for v in res["mean"]):
             raise AssertionError(f"local_all {backbone} {task}: mean {res['mean']}")
-    launches = {"max_sim": max_sim_mod.max_sim_launches,
-                "roc_hist": roc_hist_mod.roc_hist_launches}
+    launches = read_launches()
     check_local_all_log(os.path.join(out_dir, "local_log.txt"), n_clients)
     return launches
 
@@ -917,8 +1122,7 @@ def drive(argv: list, on_setup=None):
     if on_setup is not None:
         on_setup(run)
     sync = torch.cuda.synchronize if run.cfg.runtime.device == "cuda" else (lambda: None)
-    max_sim_mod.max_sim_launches = 0
-    roc_hist_mod.roc_hist_launches = 0
+    zero_launches()
     history = []
     while not run.done:
         t = time.perf_counter()
@@ -932,8 +1136,7 @@ def drive(argv: list, on_setup=None):
         history.append(rec)
         if not all(math.isfinite(x) for x in rec["losses"] + [rec["avg_loss"]]):
             raise AssertionError(f"non-finite loss in round {rec['round']}: {rec['losses']}")
-    launches = {"max_sim": max_sim_mod.max_sim_launches,
-                "roc_hist": roc_hist_mod.roc_hist_launches}
+    launches = read_launches()
     t = time.perf_counter()
     train_cli.finish(run)
     finish_s = time.perf_counter() - t
@@ -952,6 +1155,9 @@ def drive(argv: list, on_setup=None):
 
 
 def expect_launches(run, launches: dict, expected: dict, part: str) -> None:
+    """``expected`` names the kernels the part launches; every other kernel
+    must not have launched."""
+    expected = {**{k: 0 for k in KERNEL_COUNTERS}, **expected}
     if run.cfg.runtime.device == "cuda" and launches != expected:
         raise AssertionError(f"{part}: kernel launches {launches}, expected {expected}")
 
@@ -1198,33 +1404,161 @@ def phase_paths(root: str, n_clients: int, ids: int, **round_kw) -> dict:
     return by_part
 
 
+# ---------------------------------------------------------------- phase 8
+
+REF_PUBLIC, REF_VERI, REF_TARGETS = 420_671, 160_000, 4_000
+
+
+def reference_args(val_root: str, out: str) -> list:
+    """run.sh's round at the reference's data scale on the ``synth:``
+    universe at its defaults (40 clients x 100 IDs x 61-69 images, 420,671
+    public images over 6,000 IDs, 4,000 x 40 veri), sphere64, E=512,
+    112x112, combined batch 256, with the cuts: 2 of 40 clients, 1 local
+    epoch, 1 round, the mined set capped at 6,500 images, no resume state
+    or per-round client exports."""
+    return [
+        "--network", "sphnet", "--embedding_size", "512", "--image_size", "112",
+        "--com_batch_size", "256", "--eval_batch_size", "512",
+        "--public_batch_size", "512", "--lr", "0.001", "--num_client", "40",
+        "--num_ids", "4000", "--client_sampled_ratio", "0.05", "--local_epoch", "1",
+        "--total_round", "1", "--HN_threshold", str(THRESHOLD), "--HN_cap", "6500",
+        "--num_workers", "6", "--rec_root", "synth:", "--local_rec", "synth:",
+        "--val_root", val_root, "--output_dir", out, "--round_ckpt_every", "0",
+        "--client_ckpt_every", "0", "--add_pretrained_data", "--combine_dataset",
+        "--contrastive_bb", "--return_all", "--BCE_local", "--adaptive_local_epoch",
+    ]
+
+
+@contextlib.contextmanager
+def launch_shapes():
+    """Records the shape of every mining and ROC call of the block:
+    (public rows, local rows, width) and (targets, rows, width)."""
+    shapes = {"max_sim": [], "roc_hist": []}
+    mine, roc = embed_mod.max_cosine_similarity, roc_histogram_mod.roc_histogram
+
+    def mine_rec(public, local):
+        shapes["max_sim"].append((public.shape[0], local.shape[0], public.shape[1]))
+        return mine(public, local)
+
+    def roc_rec(feats, labels, target_size):
+        shapes["roc_hist"].append((int(target_size), feats.shape[0], feats.shape[1]))
+        return roc(feats, labels, target_size)
+
+    embed_mod.max_cosine_similarity, roc_histogram_mod.roc_histogram = mine_rec, roc_rec
+    try:
+        yield shapes
+    finally:
+        embed_mod.max_cosine_similarity, roc_histogram_mod.roc_histogram = mine, roc
+
+
+def phase_reference(argv: list) -> dict:
+    """Phase 8: one round at the reference's data scale through the CLI's
+    setup, run_round and finish.  The local-eval candidates are cut from 10
+    to 1 by this script: the first client of the round's sample, drawn from
+    a copy of the server's RNG.  Checks each mining launch at 420,671 x
+    n_loc x 512 and each ROC launch at 4,000 x 160,000 x 512, that every
+    synth: batch of the round came from the kernel, finite losses, the span
+    report and the memory line."""
+    t0 = time.perf_counter()
+    zero_launches()
+    if torch.cuda.is_available():
+        # the memory line's peak is the process's: start it at this phase
+        torch.cuda.reset_peak_memory_stats()
+    setup_launches = {}
+
+    def one_candidate(run):
+        s = run.server
+        rng = np.random.default_rng()
+        rng.bit_generator.state = s.rng.bit_generator.state
+        n = run.cfg.data.num_clients
+        k = int(round(run.cfg.fed.client_sampled_ratio * n))
+        s.local_candidates = [sorted(rng.choice(n, size=k, replace=False).tolist())[0]]
+        if s.device.type == "cuda":
+            torch.cuda.synchronize()
+        setup_launches.update(read_launches(), seconds=time.perf_counter() - t0)
+
+    with launch_shapes() as shapes:
+        run, history, launches, text = drive(argv, on_setup=one_candidate)
+    rec, server, cfg = history[0], run.server, run.cfg
+    data = server.data
+    public, veri = len(data.public_dataset), len(run.local_cb.dataset)
+    clients = [server.clients[c] for c in rec["clients"]]
+    width = cfg.model.embedding_size
+    cand = server.clients[server.local_candidates[0]]
+    targets = int(np.isin(run.local_cb.dataset.all_labels(), cand.target_ids).sum())
+    # every synth: batch of the round: the public embed, each client's local
+    # embed and combined batches (drop_last), two veri embeds of the candidate
+    bs, eb = cfg.data.combined_batch_size, cfg.data.eval_batch_size
+    batches = (-(-public // cfg.data.public_batch_size)
+               + sum(-(-len(c.dataset) // eb) + cfg.fed.local_epochs * (c.dataset_size // bs)
+                     for c in clients)
+               + 2 * -(-veri // eb))
+    want_mine = [(public, len(c.dataset), width) for c in clients]
+    want_roc = [(targets, veri, width)] * 2
+    log("reference", setup_s=f"{setup_launches.pop('seconds'):.2f}",
+        setup_launches=setup_launches, public_images=public, veri_images=veri,
+        local_images=[len(c.dataset) for c in clients], candidates=server.local_candidates,
+        mining_shapes=shapes["max_sim"], roc_shapes=shapes["roc_hist"],
+        launches=launches, synth_batches=batches)
+    if (public, veri, targets) != (REF_PUBLIC, REF_VERI, REF_TARGETS):
+        raise AssertionError(f"universe of {public} public and {veri} veri images, "
+                             f"{targets} targets")
+    if shapes["max_sim"] != want_mine or shapes["roc_hist"] != want_roc:
+        raise AssertionError(f"launch shapes {shapes}, expected {want_mine} and {want_roc}")
+    expect_launches(run, launches, {"max_sim": len(clients), "roc_hist": 2,
+                                    "synth_gen": batches}, "8 reference")
+    if not (rec["acc"] and all(math.isfinite(a) for a in rec["acc"])):
+        raise AssertionError(f"bin accuracy {rec['acc']}")
+    spans = check_round_log(cfg.runtime.output_dir, 1)
+    out = {"round_s": rec["seconds"],
+           "train_s": rec["train_round_s"] - rec["local_eval_s"],
+           "local_eval_s": rec["local_eval_s"], "bin_eval_s": rec["bin_eval_s"],
+           "spans": spans, "memory": rec["memory"], "losses": rec["losses"],
+           "mined": rec["mined"], "dataset_sizes": rec["dataset_sizes"],
+           "acc": rec["acc"], "launches": launches, "synth_batches": batches}
+    log("reference", figures=json.dumps(out))
+    return launches
+
+
 def main() -> None:
-    smi = phase_device()
-    phase_build()
-    mining = phase_mining(420_671, 6_500, 512)
-    roc = phase_roc(160_000, 4_000, 512)
-    with tempfile.TemporaryDirectory(prefix="fedfr_smoke_") as root:
+    seconds = {}
+
+    def timed(name, fn, *args, **kwargs):
         t0 = time.perf_counter()
-        write_round_data(root, n_clients=2, ids=100, size=112)
-        log("round", data_written_s=f"{time.perf_counter() - t0:.2f}")
-        by_phase = {"round": phase_round(round_args(root, n_clients=2, ids=100))}
+        out = fn(*args, **kwargs)
+        seconds[name] = round(time.perf_counter() - t0, 2)
+        return out
+
+    smi = timed("1_device", phase_device)
+    timed("2_build", phase_build)
+    mining = timed("3_max_sim", phase_mining, 420_671, 6_500, 512)
+    roc = timed("3_roc_hist", phase_roc, 160_000, 4_000, 512)
+    synth = timed("3_synth_gen", phase_synth_gen, REF_PUBLIC)
+    with tempfile.TemporaryDirectory(prefix="fedfr_smoke_") as root:
+        timed("4_data", write_round_data, root, n_clients=2, ids=100, size=112)
+        # round 0 runs 1 local epoch: --profile traces it, and the trace's
+        # post-processing grows with the round's launches
+        by_phase = {"round": timed("4_round", phase_round, round_args(
+            root, n_clients=2, ids=100, local_epochs=1) + ["--profile"])}
         pre = os.path.join(root, "pretrain_iresnet100")
         write_pretrained_root(pre, "iresnet100", 512, 112, pub_ids=2000,
                               pub_imgs=2, seed=100)
         argv = pretrained_args(root, 2, 100, pre, network="iresnet100")
-        by_phase["pretrained_iresnet"] = phase_pretrained(argv)
-        by_phase["local_all"] = phase_local_all(
-            argv[argv.index("--output_dir") + 1], root, 2, 100, "iresnet100", 512,
-            converter_layer=2)
-        t0 = time.perf_counter()
-        by_phase.update(phase_paths(root, n_clients=2, ids=100))
-        log("paths", seconds=f"{time.perf_counter() - t0:.2f}")
-    for record in (mining, roc):
+        by_phase["pretrained_iresnet"] = timed("5_pretrained", phase_pretrained, argv)
+        by_phase["local_all"] = timed(
+            "6_local_all", phase_local_all, argv[argv.index("--output_dir") + 1],
+            root, 2, 100, "iresnet100", 512, converter_layer=2)
+        by_phase.update(timed("7_paths", phase_paths, root, n_clients=2, ids=100))
+        by_phase["reference"] = timed("8_reference", phase_reference, reference_args(
+            os.path.join(root, "val"), os.path.join(root, "run_reference")))
+    log("smoke", phase_seconds=json.dumps(seconds),
+        total_s=round(sum(seconds.values()), 2))
+    for record in (mining, roc, synth):
         counts = {k: v[record["name"]] for k, v in by_phase.items()}
         record["launches"] = sum(counts.values())
         record["launches_by_phase"] = counts
     print(smi, flush=True)
-    print(json.dumps({"kernels": [mining, roc]}), flush=True)
+    print(json.dumps({"kernels": [mining, roc, synth]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

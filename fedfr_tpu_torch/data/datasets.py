@@ -10,11 +10,13 @@ The port's copy of ``fedfr_tpu/data/datasets.py`` for rec roots:
 * ``BatchLoader`` — the same seeded numpy shuffle as the JAX package, so a
   client sees its batches in the same order on both sides.
 * ``AllClientData`` — the client shards + public train set
-  (reference dataset.py:73-142), and the local verification split.
+  (reference dataset.py:73-142), and the local verification split; on a
+  ``synth:`` root the device-generated universe of ``data/synthetic.py``.
 
 Decoding runs on a host thread pool; augmentation (random hflip) and
 normalization run on the device inside the train step, so the host only moves
-uint8 bytes.
+uint8 bytes.  ``synth:`` batches are generated on the device: the host moves
+only a few int32 words per image.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import numpy as np
 
 from . import codec
 from .recordio import IndexedRecordReader, SplitMeta, read_split_meta
+from .synthetic import (build_fl_synthetic, explicit_synth_keys,
+                        is_synth_spec, parse_synth_spec, synth_device_batch)
 
 
 class FaceRecordDataset:
@@ -92,6 +96,20 @@ class CombinedDataset:
         self.local_len = len(local)
         self.shift = int(local.num_classes or 0)
         self.num_classes = (local.num_classes or 0) + (public.num_classes or 0)
+        if self.is_device_synthetic:
+            assert (local.seed == public.seed
+                    and local.image_size == public.image_size
+                    and local.noise == public.noise
+                    and local.block == public.block
+                    and local.expr == public.expr
+                    and local.shift_div == public.shift_div
+                    and local.device == public.device), \
+                "combined synthetic splits must share one universe"
+
+    @property
+    def is_device_synthetic(self) -> bool:
+        return (getattr(self.local, "is_device_synthetic", False)
+                and getattr(self.public, "is_device_synthetic", False))
 
     def __len__(self) -> int:
         return self.local_len + len(self.public)
@@ -101,6 +119,26 @@ class CombinedDataset:
             return self.local.read(pos)
         img, label = self.public.read(pos - self.local_len)
         return img, label + self.shift
+
+    def device_batch(self, positions: np.ndarray):
+        """A mixed local + public batch of two splits of one ``synth:``
+        universe as ONE generator launch (JAX datasets.py:159-188) ->
+        (u8 NHWC images on the device, host int32 labels)."""
+        positions = np.asarray(positions)
+        is_local = positions < self.local_len
+        n = len(positions)
+        keys, gids, bgids, dseeds = (np.empty(n, np.int32) for _ in range(4))
+        bw = np.empty(n, np.float32)
+        labels = np.empty(n, np.int32)
+        for sel, ds, off, shift in ((is_local, self.local, 0, 0),
+                                    (~is_local, self.public, self.local_len,
+                                     self.shift)):
+            if not sel.any():
+                continue
+            k, g, bg, w, dseed, lb = ds.synth_vectors(positions[sel] - off)
+            keys[sel], gids[sel], bgids[sel], bw[sel], dseeds[sel] = k, g, bg, w, dseed
+            labels[sel] = lb + shift
+        return synth_device_batch(self.local, (keys, gids, bgids, bw, dseeds)), labels
 
 
 class BatchLoader:
@@ -152,49 +190,86 @@ class BatchLoader:
     def epoch(self, with_positions: bool = False):
         """Yield (images u8 NHWC, labels i32, valid bool) for one epoch.
 
-        ``with_positions`` appends the batch's dataset positions (int32; pad
+        A ``synth:`` dataset yields its images as a tensor on its device
+        (one generator launch a batch); a record dataset as host numpy from
+        the decode pool.  ``with_positions`` appends the batch's dataset positions (int32; pad
         slots repeat the first position, as the images do), which the
         cached-contrastive step gathers its frozen features by.
         """
         n = len(self.dataset)
         order = self.rng.permutation(n) if self.shuffle else np.arange(n)
         bs = self.batch_size
+        synthetic = getattr(self.dataset, "is_device_synthetic", False)
         for b in range(len(self)):
             idx = order[b * bs: (b + 1) * bs]
             valid = np.ones(bs, dtype=bool)
             if len(idx) < bs:
                 valid[len(idx):] = False
                 idx = np.concatenate([idx, np.full(bs - len(idx), idx[0])])
+            pos = (idx.astype(np.int32),) if with_positions else ()
+            if synthetic:
+                imgs, labels = self.dataset.device_batch(idx)
+                yield (imgs, labels, valid) + pos
+                continue
             items = list(self.pool.map(self.dataset.read, idx))
             imgs = np.stack([it[0] for it in items])
             labels = np.array([it[1] for it in items], dtype=np.int32)
-            yield (imgs, labels, valid) + ((idx.astype(np.int32),) if with_positions else ())
+            yield (imgs, labels, valid) + pos
 
 
 class AllClientData:
-    """All client shards + the public train split (reference dataset.py:73-142).
+    """All client shards + the public train split (reference
+    dataset.py:73-142).
 
-    Rec roots only: the JAX package's ``synth:`` device-generated universes
-    are not ported.
+    A ``cfg.data.rec_root`` of the form ``synth:key=value,...`` builds the
+    device-generated universe of ``data/synthetic.py`` on
+    ``cfg.runtime.device`` instead of reading rec files.  The CLI's flags
+    fill in the spec keys the string leaves at their defaults (``clients``,
+    ``ids_per_client`` from ``num_ids``, ``image_size``, ``seed``); a key
+    the spec sets that contradicts its flag raises ``ValueError``, as in the
+    JAX package, since a silent override would build another universe than
+    an earlier run given the same string.
     """
 
-    def __init__(self, cfg):
-        if cfg.data.rec_root.startswith("synth:"):
-            raise NotImplementedError(
-                "synth: roots are not ported to the PyTorch package yet "
-                "(ROADMAP queue A); write a rec split instead")
+    def __init__(self, cfg, include_public: bool = True):
         self.cfg = cfg
-        self.client_datasets: List[FaceRecordDataset] = [
-            FaceRecordDataset(os.path.join(cfg.data.split_dir, "client_%04d" % c))
-            for c in range(cfg.data.num_clients)]
-        self.public_dataset = FaceRecordDataset(cfg.data.public_dir)
+        self.synthetic_universe = None
+        self.public_dataset = None
+        if is_synth_spec(cfg.data.rec_root):
+            spec = parse_synth_spec(cfg.data.rec_root)
+            explicit = explicit_synth_keys(cfg.data.rec_root)
+            overrides = {"clients": cfg.data.num_clients,
+                         "image_size": cfg.data.image_size,
+                         "seed": cfg.runtime.seed}
+            if cfg.data.num_ids:
+                overrides["ids_per_client"] = max(
+                    1, cfg.data.num_ids // cfg.data.num_clients)
+            for k, v in overrides.items():
+                if k in explicit and spec[k] != v:
+                    raise ValueError(
+                        f"synth spec sets {k}={spec[k]} but the CLI config "
+                        f"implies {k}={v}; drop one of the two")
+                spec[k] = v
+            self.synthetic_universe = build_fl_synthetic(spec, cfg.runtime.device)
+            self.client_datasets = self.synthetic_universe["clients"]
+            if include_public:
+                self.public_dataset = self.synthetic_universe["public"]
+        else:
+            self.client_datasets = [
+                FaceRecordDataset(os.path.join(cfg.data.split_dir, "client_%04d" % c))
+                for c in range(cfg.data.num_clients)]
+            if include_public:
+                self.public_dataset = FaceRecordDataset(cfg.data.public_dir)
         self.train_class_sizes = [int(d.num_classes or 0)
                                   for d in self.client_datasets]
 
-    def client(self, cid: int) -> FaceRecordDataset:
+    def client(self, cid: int):
         return self.client_datasets[cid]
 
-    def veri_dataset(self, veri_dir: str) -> FaceRecordDataset:
-        """The local-verification split (``local_veri_4000``): the ``test``
-        rec at ``veri_dir``, labelled with global identity IDs."""
+    def veri_dataset(self, veri_dir: str):
+        """The local-verification split: the universe's veri split under a
+        ``synth:`` root, else the ``test`` rec at ``veri_dir``
+        (``local_veri_4000``, labelled with global identity IDs)."""
+        if self.synthetic_universe is not None:
+            return self.synthetic_universe["veri"]
         return FaceRecordDataset(veri_dir, prefix="test")

@@ -73,9 +73,16 @@ def prefetched(iterable, depth: int = 2):
 
 
 def to_device_batch(parts, device: torch.device) -> Tuple[torch.Tensor, ...]:
-    """numpy batch parts -> device tensors (pinned + non_blocking on CUDA)."""
+    """numpy batch parts -> device tensors (pinned + non_blocking on CUDA).
+
+    A part that is a tensor already (a ``synth:`` batch, generated on the
+    device) is moved only if it lies elsewhere: ``Tensor.to`` returns a
+    tensor already on ``device`` as it is."""
     out = []
     for p in parts:
+        if isinstance(p, torch.Tensor):
+            out.append(p.to(device, non_blocking=True))
+            continue
         t = torch.from_numpy(p)
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)

@@ -6,7 +6,11 @@ rows; the MOON term recomputed or gathered from per-run caches) and the
 plain objective over the client's own data.  Between rounds a client keeps its
 local FC, its BCE state_dict and its last-round backbone state_dict on the
 device; a local run loads them into modules that every client shares (the
-server's work modules), trains, and copies the results back out.
+server's work modules), trains, and copies the results back out.  Its
+``timer`` (the server's ``SpanTimer`` once the server holds it) times its
+phases as ``phase/mining``, ``phase/contrastive_cache`` and
+``phase/local_train`` (one span per local epoch of the joint objective, its
+loss fetch included).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from ..data.pipeline import DevicePrefetcher
 from ..models import BCEModule, build_backbone, l2_normalize
 from ..utils.device import resolve_device
 from ..utils.optim import step_lr
+from ..utils.profiling import SpanTimer
 from .embed import (class_mean_features, embed_dataset, embed_flip_caches,
                     max_similarity)
 from .trainer import (branch_step_for, init_client_state, make_plain_train_step,
@@ -139,6 +144,7 @@ class Client:
         self.mined = 0  # public images above the mining threshold, last run
         self.trained_backbone: Optional[StateDict] = None
         self.global_fc: Optional[torch.Tensor] = None
+        self.timer = SpanTimer()  # the server's, once it holds the client
 
     # ------------------------------------------------------------- FC init
 
@@ -227,15 +233,16 @@ class Client:
         run's starting weights.
         """
         cfg = self.cfg
-        if cfg.fed.hn_strategy == "fc":
-            public_subset = self.select_hard_negatives_fc(
-                pretrained_fc, public_dataset, public_labels,
-                threshold=cfg.fed.hn_fc_threshold)
-        elif public_feats is not None:
-            public_subset = self.select_hard_negatives(
-                global_net, public_dataset, public_feats, public_labels)
-        else:
-            public_subset = public_dataset
+        with self.timer.span("phase/mining"):
+            if cfg.fed.hn_strategy == "fc":
+                public_subset = self.select_hard_negatives_fc(
+                    pretrained_fc, public_dataset, public_labels,
+                    threshold=cfg.fed.hn_fc_threshold)
+            elif public_feats is not None:
+                public_subset = self.select_hard_negatives(
+                    global_net, public_dataset, public_feats, public_labels)
+            else:
+                public_subset = public_dataset
         combined = CombinedDataset(self.dataset, public_subset)
         self.dataset_size = len(combined)  # FedAvg weight (client.py:303)
 
@@ -334,7 +341,9 @@ class Client:
                 f"smaller than the batch size {cfg.data.combined_batch_size}")
         use_cache = use_cached_contrastive(cfg)
         if use_cache:
-            g_cache, l_cache = self.build_flip_caches(global_net, last_net, combined)
+            with self.timer.span("phase/contrastive_cache"):
+                g_cache, l_cache = self.build_flip_caches(global_net, last_net,
+                                                          combined)
         if step_fn is None:
             step_fn = branch_step_for(cfg, self.num_classes, use_cache)
 
@@ -351,21 +360,22 @@ class Client:
                 lr = step_lr(cfg.optim.lr, epoch, train_decay, cfg.optim.lr_gamma)
                 tic = time.perf_counter()
                 epoch_steps = 0
-                for batch in loader.epoch(with_positions=use_cache):
-                    imgs, labels, valid = batch[:3]
-                    flip = self._flip(n_steps, imgs, gen)
-                    if use_cache:
-                        state, metrics = step_fn(state, g_cache, l_cache, imgs,
-                                                 labels, valid, batch[3], lr,
-                                                 flip, dropout_gen=dropout_gen)
-                    else:
-                        state, metrics = step_fn(state, global_net, last_net,
-                                                 imgs, labels, valid, lr, flip,
-                                                 dropout_gen=dropout_gen)
-                    acc += torch.stack(metrics)
-                    n_steps += 1
-                    epoch_steps += 1
-                sums = acc.cpu().numpy()  # the epoch's one host sync
+                with self.timer.span("phase/local_train"):
+                    for batch in loader.epoch(with_positions=use_cache):
+                        imgs, labels, valid = batch[:3]
+                        flip = self._flip(n_steps, imgs, gen)
+                        if use_cache:
+                            state, metrics = step_fn(state, g_cache, l_cache, imgs,
+                                                     labels, valid, batch[3], lr,
+                                                     flip, dropout_gen=dropout_gen)
+                        else:
+                            state, metrics = step_fn(state, global_net, last_net,
+                                                     imgs, labels, valid, lr, flip,
+                                                     dropout_gen=dropout_gen)
+                        acc += torch.stack(metrics)
+                        n_steps += 1
+                        epoch_steps += 1
+                    sums = acc.cpu().numpy()  # the epoch's one host sync
                 speed = (epoch_steps * cfg.data.combined_batch_size
                          / max(time.perf_counter() - tic, 1e-9))
                 mean = sums / max(n_steps, 1)
@@ -423,13 +433,14 @@ class Client:
         loss_acc = torch.zeros((), device=self.device)
         n_steps = 0
         try:
-            for _ in range(local_epochs):
-                for imgs, labels, valid in loader.epoch():
-                    flip = self._flip(n_steps, imgs, gen)
-                    state, loss = step_fn(state, imgs, labels, valid, lr, flip,
-                                          dropout_gen=dropout_gen)
-                    loss_acc += loss  # on-device running sum
-                    n_steps += 1
+            with self.timer.span("phase/local_train"):
+                for _ in range(local_epochs):
+                    for imgs, labels, valid in loader.epoch():
+                        flip = self._flip(n_steps, imgs, gen)
+                        state, loss = step_fn(state, imgs, labels, valid, lr, flip,
+                                              dropout_gen=dropout_gen)
+                        loss_acc += loss  # on-device running sum
+                        n_steps += 1
         finally:
             base_loader.close()
         self.finalize_plain_run(state, float(loss_acc) / max(n_steps, 1))

@@ -23,6 +23,12 @@ the clients' local FCs from the ``preCos_init_AN.pth`` cache (every
 client's rows stacked in client order).  A missing file falls back to what
 the JAX ``Server`` does without it.
 
+The round's phases are timed under the JAX package's span names in
+``self.timer`` (a ``utils/profiling.SpanTimer`` shared with the clients,
+synchronizing the card at each span's end): ``phase/public_embed`` and
+``phase/aggregate`` here, ``phase/mining``, ``phase/contrastive_cache`` and
+``phase/local_train`` in the clients; the CLI adds its own.
+
 Every switch of the JAX sequential ``train_round`` is here: the joint
 public-data objective with feature or FC-row mining and the MOON term
 recomputed or cached, the plain objective (``fed.add_pretrained_data``
@@ -47,6 +53,7 @@ from ..parallel.fedavg import (fedavg_on_fc, spreadout, spreadout_loss,
                                streaming_weighted_average)
 from ..utils.checkpoint import load_backbone_state, load_pth
 from ..utils.device import resolve_device
+from ..utils.profiling import SpanTimer
 from .client import Client
 from .embed import class_mean_features, embed_dataset
 from .trainer import branch_step_for, make_plain_train_step, use_cached_contrastive
@@ -92,10 +99,13 @@ class Server:
                                     m=cfg.loss.bce_margin, r=cfg.loss.bce_scale,
                                     t=cfg.loss.bce_t).to(self.device)
 
+        self.timer = SpanTimer(self.device)  # per-phase round breakdown
         self.clients: List[Client] = [
             Client(cid, cfg, data.client(cid), self.backbone, self.bce_module,
                    last_net=self.last_net, device=self.device)
             for cid in range(cfg.data.num_clients)]
+        for c in self.clients:
+            c.timer = self.timer
 
         # clients sampled for per-round local verification (server.py:107);
         # drawn here as in the JAX package so the sampling stream matches
@@ -185,11 +195,14 @@ class Server:
         round, not once per client: at a width that is a multiple of 64
         (the reference 512) that is the mining kernel's layout, which it
         reads without a copy.  On the CPU they stay fp32."""
-        feats, _ = self._embed(self.data.public_dataset,
-                               self.cfg.data.public_batch_size, l2norm=True)
+        with self.timer.span("phase/public_embed"):
+            feats, _ = self._embed(self.data.public_dataset,
+                                   self.cfg.data.public_batch_size, l2norm=True)
+            if feats.is_cuda:
+                feats = feats.to(torch.bfloat16)
         logger.info("round %d: public features %s embedded", self.global_round,
                     tuple(feats.shape))
-        return feats.to(torch.bfloat16) if feats.is_cuda else feats
+        return feats
 
     def sample_clients(self) -> List[int]:
         n = self.cfg.data.num_clients
@@ -268,13 +281,14 @@ class Server:
 
         logger.info("round %d avg client loss %.5f", self.global_round,
                     float(np.mean(losses)))
-        # FedAvg over every state entry, BN stats included (server.py:322-338)
-        self.global_net.load_state_dict(streaming_weighted_average(models, sizes))
-        if cfg.fed.return_all and fcs:
-            self.pretrained_fc = fedavg_on_fc(self.pretrained_fc,
-                                              torch.stack(fcs), sizes, p=1.0)
-        if cfg.fed.spreadout:
-            self.spread_out()
+        with self.timer.span("phase/aggregate"):
+            # FedAvg over every state entry, BN stats included (server.py:322-338)
+            self.global_net.load_state_dict(streaming_weighted_average(models, sizes))
+            if cfg.fed.return_all and fcs:
+                self.pretrained_fc = fedavg_on_fc(self.pretrained_fc,
+                                                  torch.stack(fcs), sizes, p=1.0)
+            if cfg.fed.spreadout:
+                self.spread_out()
         return {"avg_loss": float(np.mean(losses))}
 
     def spread_out(self) -> None:

@@ -19,6 +19,12 @@ local_all.py:224-454), with its flags plus ``--device``:
   ``--gallery_data_dir`` (``local_gallery_<N>``, global labels, as
   ``split_dataset/split_FL.py`` writes it) and the open-set TPIR@FPIR.
 
+A ``synth:`` spec as ``--data_dir`` (the training run's string) evaluates
+on the device-generated universe: the veri set is its veri split and each
+client's 1:n gallery is its own train images, as ``split_FL.py`` routes
+them (JAX local_all.py:44-70); the spec and the flags must agree on the
+clients and their IDs, and the veri split must cover ``--num_ids``.
+
 ``.pth`` files are the port's and the reference's state_dicts; ``.npz``
 files are the JAX package's variable trees.  The means are appended to
 ``<ckpt_path>/local_log.txt`` in the JAX CLI's format, beside the per-client
@@ -36,6 +42,7 @@ import numpy as np
 import torch
 
 from .data.datasets import FaceRecordDataset
+from .data.synthetic import build_fl_synthetic, is_synth_spec, parse_synth_spec
 from .evalsuite.local_eval import (client_query_mask, local_11_roc,
                                    mean_tpr_tables, open_set_identification)
 from .federated.embed import class_mean_features, embed_dataset
@@ -89,18 +96,41 @@ def _append(log_dir: str, text: str) -> None:
         f.write(text)
 
 
+def synth_universe(args, device) -> Dict[str, object]:
+    """The ``synth:`` universe of ``--data_dir``, after JAX's two checks:
+    the spec's clients and IDs per client equal the flags', and its veri
+    split covers every client's ID range."""
+    spec = parse_synth_spec(args.data_dir)
+    for key, val in (("clients", args.num_client),
+                     ("ids_per_client", args.num_ids // args.num_client)):
+        if spec[key] != val:
+            raise ValueError(
+                f"synth spec has {key}={spec[key]} but the CLI flags imply "
+                f"{key}={val}; they must agree (identity alignment with the "
+                "trained checkpoints depends on it)")
+    if spec["veri_ids"] < args.num_ids:
+        raise ValueError(
+            f"synth spec veri_ids={spec['veri_ids']} does not cover "
+            f"num_ids={args.num_ids}; every client's global ID range must "
+            "appear in the veri split")
+    return build_fl_synthetic(spec, device)
+
+
 def main(args) -> Dict[str, List]:
     """Run the evaluation; returns the per-client tables (1:1) or TPIR
     lists (1:n) under ``per_client`` and their mean under ``mean``."""
     device = resolve_device(args.device)
-    if args.data_dir.startswith("synth:"):
-        raise NotImplementedError(
-            "synth: data dirs are not ported to the PyTorch package yet "
-            "(ROADMAP queue A item 8); evaluate on a rec split")
-    veri = FaceRecordDataset(args.data_dir, prefix="test")
+    universe = None
+    if is_synth_spec(args.data_dir):
+        universe = synth_universe(args, device)
+        veri = universe["veri"]
+        image_size = veri.image_size
+    else:
+        veri = FaceRecordDataset(args.data_dir, prefix="test")
+        image_size = veri.read(0)[0].shape[0]
     ids_per_client = args.num_ids // args.num_client
     net = build_backbone(args.network, args.embedding_size, bf16=not args.fp32,
-                         image_size=veri.read(0)[0].shape[0]).to(device).eval()
+                         image_size=image_size).to(device).eval()
     bce = BCEModule(args.embedding_size, ids_per_client,
                     converter_layers=args.converter_layer).to(device).eval()
     log_dir = args.ckpt_path
@@ -141,8 +171,14 @@ def main(args) -> Dict[str, List]:
         net.load_state_dict(load_backbone_state(args.network, path))
         feats, labels = embed(veri)
         if args.task == "1:n":
-            gfeats, glabels = embed(FaceRecordDataset(args.gallery_data_dir,
-                                                      prefix="test"))
+            if universe is not None:
+                # every client's train images under their global labels
+                parts = [(embed(d), d.id_base) for d in universe["clients"]]
+                gfeats = torch.cat([f for (f, _), _ in parts])
+                glabels = np.concatenate([lb + base for (_, lb), base in parts])
+            else:
+                gfeats, glabels = embed(FaceRecordDataset(args.gallery_data_dir,
+                                                          prefix="test"))
             gallery_means = class_mean_features(gfeats, glabels, args.num_ids)
         for c in range(args.num_client):
             start, end = c * ids_per_client, (c + 1) * ids_per_client
@@ -153,7 +189,7 @@ def main(args) -> Dict[str, List]:
                 per_client.append(one_to_n(feats, labels,
                                            gallery_means[start:end], start, end))
     else:
-        if args.task == "1:n":
+        if args.task == "1:n" and universe is None:
             gallery = FaceRecordDataset(args.gallery_data_dir, prefix="test")
             gallery_labels = gallery.all_labels()
         for c in range(args.num_client):
@@ -165,10 +201,16 @@ def main(args) -> Dict[str, List]:
                 per_client.append(local_11_roc(feats, labels, start, end,
                                                epoch=args.epoch, output_dir=log_dir))
                 continue
-            keep = (gallery_labels >= start) & (gallery_labels < end)
-            gfeats, glabels = embed(gallery.subset(np.nonzero(keep)[0] + 1),
-                                    converter)
-            gallery_means = class_mean_features(gfeats, glabels - start,
+            if universe is not None:
+                # client c's train images are its gallery, labelled locally
+                gfeats, glabels = embed(universe["clients"][c], converter)
+                gal_base = 0
+            else:
+                keep = (gallery_labels >= start) & (gallery_labels < end)
+                gfeats, glabels = embed(gallery.subset(np.nonzero(keep)[0] + 1),
+                                        converter)
+                gal_base = start  # rec gallery labels are global
+            gallery_means = class_mean_features(gfeats, glabels - gal_base,
                                                 ids_per_client)
             per_client.append(one_to_n(feats, labels, gallery_means, start, end))
 

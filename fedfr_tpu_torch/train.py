@@ -28,6 +28,15 @@ The resume state goes to ``<output_dir>/rounds/round_<K>.pt`` (+
 after the final round, with the ``.bin`` best table; ``--resume`` starts
 from the newest complete one (``utils/checkpoint.py::RoundCheckpointer``;
 ``--round_ckpt_keep``, ``--round_ckpt_async``, ``--round_ckpt_bg_fetch``).
+
+``--rec_root synth:...`` (and ``--local_rec synth:...``) runs on the
+device-generated universe of ``data/synthetic.py``, no data files needed.
+After each round training.log gets the phase-span report (``span <name>
+total ... calls ... avg ...``: the server's ``phase/*`` spans, cumulative)
+and a ``memory: device in_use ... MB peak ... MB | host maxrss ... MB``
+line; at the end the CLI's own spans (``train_round``, ``eval``).
+``--profile`` writes a ``torch.profiler`` trace of round 0 to
+``<output_dir>/torch_trace/trace.json``.
 The flags of paths not ported yet raise, each naming its ROADMAP item.
 """
 
@@ -37,6 +46,7 @@ import argparse
 import copy
 import logging
 import os
+import resource
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
@@ -51,6 +61,7 @@ from .federated.server import Server
 from .utils.checkpoint import RoundCheckpointer
 from .utils.device import resolve_device
 from .utils.logging import init_logging
+from .utils.profiling import SpanTimer, torch_trace
 from .utils.snapshot import snapshot_source
 
 
@@ -112,7 +123,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="start from the newest complete round state in "
                         "<output_dir>/rounds")
     p.add_argument("--profile", action="store_true",
-                   help="not ported: raises (ROADMAP queue A item 14)")
+                   help="write a torch.profiler trace of the first round to "
+                        "<output_dir>/torch_trace")
     p.add_argument("--scan_blocks", action="store_true",
                    help="no effect here: a JAX compile option; the port's "
                         "modules have one layout")
@@ -162,7 +174,6 @@ def check_flags(args) -> None:
     unported = {
         "--lockstep > 1 (ROADMAP queue A item 13)": args.lockstep > 1,
         "--remat (ROADMAP queue A item 13)": args.remat,
-        "--profile (ROADMAP queue A item 14)": args.profile,
     }
     bad = [name for name, on in unported.items() if on]
     if bad:
@@ -232,12 +243,12 @@ def attach_callbacks(cfg: FedFRConfig, server: Server, data: AllClientData,
     ``server`` as train.py:105-159 does.  Both evaluate in one eval module
     of their own (a copy of the global model and of the BCE module), into
     which they load the state to be evaluated; the modules the clients train
-    in are never touched.  The local eval's seconds add up in
+    in are never touched.  The local eval runs in the server's
+    ``phase/local_eval`` span and its seconds add up in
     ``spent["local_eval"]``.  Returns (bin callback or None, local callback
     or None)."""
     eval_net = copy.deepcopy(server.global_net)
     eval_bce = copy.deepcopy(server.bce_module).eval().requires_grad_(False)
-    sync = torch.cuda.synchronize if server.device.type == "cuda" else (lambda: None)
 
     bin_cb = None
     if cfg.data.val_root:
@@ -248,7 +259,8 @@ def attach_callbacks(cfg: FedFRConfig, server: Server, data: AllClientData,
             device=server.device)
 
     local_cb = None
-    if cfg.data.local_veri_dir and os.path.exists(cfg.data.local_veri_dir):
+    if cfg.data.local_veri_dir and (data.synthetic_universe is not None
+                                    or os.path.exists(cfg.data.local_veri_dir)):
         local_cb = LocalVerificationCallback(
             eval_net, eval_bce, data.veri_dataset(cfg.data.local_veri_dir),
             cfg.runtime.output_dir, batch_size=cfg.data.eval_batch_size,
@@ -280,9 +292,9 @@ def attach_callbacks(cfg: FedFRConfig, server: Server, data: AllClientData,
         bce_state = (client.bce_state if client.bce_state is not None
                      and epoch != -1 else None)
         t0 = time.perf_counter()
-        local_cb.veri_test(variables, epoch, client.target_ids, client.cid,
-                           bce_state)
-        sync()
+        with server.timer.span("phase/local_eval"):
+            local_cb.veri_test(variables, epoch, client.target_ids, client.cid,
+                               bce_state)
         spent["local_eval"] += time.perf_counter() - t0
 
     server.eval_callback = eval_callback
@@ -301,6 +313,8 @@ class Training:
     local_cb: Optional[LocalVerificationCallback]
     spent: Dict[str, float]  # seconds by phase, filled by the callbacks
     ckpt: RoundCheckpointer  # the resume state
+    timer: SpanTimer  # the CLI's own spans: train_round, eval
+    trace_dir: Optional[str] = None  # --profile: round 0's trace goes here
 
     @property
     def done(self) -> bool:
@@ -319,7 +333,7 @@ def setup(args) -> Training:
         logger.info("--scan_blocks and --device_cache have no effect here: "
                     "the port's modules have one layout and its states stay "
                     "on the device")
-    data = AllClientData(cfg)
+    data = AllClientData(cfg, include_public=cfg.fed.add_pretrained_data)
     server = Server(cfg, data)
     spent = {"local_eval": 0.0}
     bin_cb, local_cb = attach_callbacks(cfg, server, data, logger, spent)
@@ -344,26 +358,53 @@ def setup(args) -> Training:
             best = ckpt.last_extra.get("best")
             if bin_cb is not None and best and len(best) == len(bin_cb.highest):
                 bin_cb.highest = [tuple(b) for b in best]
+    trace_dir = None
+    if args.profile:
+        trace_dir = os.path.join(cfg.runtime.output_dir, "torch_trace")
+        logger.info("profiling first round to %s", trace_dir)
     logger.info("=== Start Federated learning ===")
-    return Training(cfg, logger, server, bin_cb, local_cb, spent, ckpt)
+    return Training(cfg, logger, server, bin_cb, local_cb, spent, ckpt,
+                    SpanTimer(server.device), trace_dir)
+
+
+def log_memory(logger: logging.Logger, device: torch.device) -> Dict[str, float]:
+    """The JAX CLI's per-round memory line (train.py:238-262): the card's
+    allocated and peak allocated MB (``torch.cuda``), the host's peak RSS;
+    returns the numbers (device ones None on the CPU, where they are not
+    measured)."""
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e3
+    if device.type != "cuda":
+        logger.info("memory: device in_use not measured (cpu) | host maxrss "
+                    "%.0f MB", rss)
+        return {"device_in_use_mb": None, "device_peak_mb": None,
+                "host_maxrss_mb": rss}
+    in_use = torch.cuda.memory_allocated(device) / 1e6
+    peak = torch.cuda.max_memory_allocated(device) / 1e6
+    logger.info("memory: device in_use %.0f MB peak %.0f MB | host maxrss "
+                "%.0f MB", in_use, peak, rss)
+    return {"device_in_use_mb": in_use, "device_peak_mb": peak,
+            "host_maxrss_mb": rss}
 
 
 def run_round(t: Training) -> Dict:
     """One round of train.py:199-227: sample, train (with the candidates'
     local eval), test, export, advance.  Returns the round's numbers."""
     cfg, server, logger = t.cfg, t.server, t.logger
-    sync = torch.cuda.synchronize if server.device.type == "cuda" else (lambda: None)
     rnd = server.global_round
     server.current_client_list = clients = server.sample_clients()
     logger.info("====== Round %d ======", rnd)
     t.spent["local_eval"] = 0.0
+    traced = t.trace_dir is not None and rnd == 0
+    with torch_trace(t.trace_dir if traced else None, server.device):
+        t0 = time.perf_counter()
+        with t.timer.span("train_round"):  # the span ends synchronized
+            stats = server.train_round()
+        train_s = time.perf_counter() - t0
+    if traced:
+        logger.info("round %d trace written to %s", rnd, t.trace_dir)
     t0 = time.perf_counter()
-    stats = server.train_round()
-    sync()
-    train_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    result = server.test()
-    sync()
+    with t.timer.span("eval"), server.timer.span("phase/bin_eval"):
+        result = server.test()
     bin_s = time.perf_counter() - t0
 
     out = cfg.runtime.output_dir
@@ -371,7 +412,8 @@ def run_round(t: Training) -> Dict:
     # the final round always exports, whatever the cadence (the
     # post-training evals read it)
     if (rce and rnd % rce == 0) or rnd == cfg.fed.total_rounds - 1:
-        server.save_round_checkpoint(out)
+        with server.timer.span("phase/torch_export"):
+            server.save_round_checkpoint(out)
     cce = cfg.runtime.client_ckpt_every
     if cce and rnd % cce == 0:
         server.save_client_checkpoints(out)
@@ -381,17 +423,21 @@ def run_round(t: Training) -> Dict:
     ckpt_s = None
     if rce and (rnd % rce == 0 or rnd == cfg.fed.total_rounds - 1):
         t0 = time.perf_counter()
-        t.ckpt.save(server, extra={
-            "best": [list(h) for h in t.bin_cb.highest] if t.bin_cb else []})
+        with server.timer.span("phase/round_ckpt"):
+            t.ckpt.save(server, extra={
+                "best": [list(h) for h in t.bin_cb.highest] if t.bin_cb else []})
         ckpt_s = time.perf_counter() - t0
     local_s = t.spent["local_eval"]
     logger.info("round %d: train_round %.3f s (of which local eval %.3f s), "
                 "bin eval %.3f s, resume-state save %s s", rnd, train_s, local_s,
                 bin_s, "none" if ckpt_s is None else f"{ckpt_s:.3f}")
+    server.timer.report(logger)  # the cumulative per-phase breakdown
+    memory = log_memory(logger, server.device)
     return {"round": rnd, "clients": clients, "avg_loss": stats["avg_loss"],
             "train_round_s": train_s, "local_eval_s": local_s,
             "bin_eval_s": bin_s, "ckpt_save_s": ckpt_s,
-            "acc": result["acc"] if result else None}
+            "acc": result["acc"] if result else None,
+            "spans": dict(server.timer.totals), "memory": memory}
 
 
 def finish(t: Training) -> None:
@@ -401,6 +447,7 @@ def finish(t: Training) -> None:
     converter)."""
     cfg, server = t.cfg, t.server
     t.ckpt.wait()
+    t.timer.report(t.logger)
     cce = cfg.runtime.client_ckpt_every
     if t.done and not (cce and (cfg.fed.total_rounds - 1) % cce == 0):
         trained = [c.cid for c in server.clients if c.trained_backbone is not None]
@@ -418,7 +465,8 @@ def finish(t: Training) -> None:
                     "after restart with partial sampling?): their final "
                     "checkpoints are missing and local_all --backbone multi "
                     "will fail for them", missing)
-            server.save_client_checkpoints(cfg.runtime.output_dir)
+            with t.timer.span("final_client_ckpt"):
+                server.save_client_checkpoints(cfg.runtime.output_dir)
     t.logger.info("training done")
 
 

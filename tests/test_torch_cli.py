@@ -10,7 +10,8 @@
   then one entry per round), the .bin accuracy, training.log and the .pth
   exports; a round whose argv carries run.sh's ``--pretrained_root`` and
   ``--fedface``, and the source snapshot in ``<output_dir>/code``; and
-  chip_smoke.py's phases, rehearsed on the CPU.
+  chip_smoke.py's phases, rehearsed on the CPU (phase 4 with the CLI's
+  ``--profile``, phase 8 on a tiny ``synth:`` universe).
 """
 
 import ast
@@ -66,7 +67,6 @@ def test_build_config_matches_jax_cli():
 @pytest.mark.parametrize("argv,item", [
     (["--lockstep", "2"], "item 13"),
     (["--remat"], "item 13"),
-    (["--profile"], "item 14"),
 ])
 def test_unported_flags_raise(argv, item, tmp_path):
     args = train_cli.build_parser().parse_args(
@@ -178,12 +178,19 @@ def test_cli_writes_final_client_exports_off_cadence(smoke_root, tmp_path):
         os.path.join(out, "training.log")).read()
 
 
+NO_LAUNCHES = {"max_sim": 0, "roc_hist": 0, "synth_gen": 0}
+
+
 def test_chip_smoke_round_phase_rehearsed_on_cpu(smoke_root, tmp_path):
-    """The smoke's round phase (the CLI's setup/run_round/finish, its log
-    and export checks) at toy size on the CPU, where the kernels' plain
-    versions run and no launch is counted."""
-    launches = chip_smoke.phase_round(_argv(smoke_root, str(tmp_path / "run")))
-    assert launches == {"max_sim": 0, "roc_hist": 0}
+    """The smoke's round phase (the CLI's setup/run_round/finish under
+    ``--profile``, the trace, span-report, memory-line, log and export
+    checks) at toy size on the CPU, where the kernels' plain versions run
+    and no launch is counted."""
+    launches = chip_smoke.phase_round(_argv(smoke_root, str(tmp_path / "run"))
+                                      + ["--profile"])
+    assert launches == NO_LAUNCHES
+    assert os.path.exists(os.path.join(str(tmp_path / "run"), "torch_trace",
+                                       "trace.json"))
 
 
 def test_main_runs_from_pretrained_root_and_snapshots_the_source(smoke_root, tmp_path):
@@ -234,10 +241,10 @@ def test_chip_smoke_pretrained_and_local_all_phases_rehearsed_on_cpu(smoke_root,
                                       eval_batch=16)
     argv[argv.index("--output_dir") + 1] = out = str(tmp_path / "run")
     argv += ["--num_workers", "2", "--lr", "0.01"]
-    assert chip_smoke.phase_pretrained(argv) == {"max_sim": 0, "roc_hist": 0}
+    assert chip_smoke.phase_pretrained(argv) == NO_LAUNCHES
     assert chip_smoke.phase_local_all(out, smoke_root, CLIENTS, IDS, "iresnet18", 16,
                                       converter_layer=2, device="cpu",
-                                      batch=16) == {"max_sim": 0, "roc_hist": 0}
+                                      batch=16) == NO_LAUNCHES
 
 
 def test_chip_smoke_paths_phase_rehearsed_on_cpu(smoke_root):
@@ -251,4 +258,26 @@ def test_chip_smoke_paths_phase_rehearsed_on_cpu(smoke_root):
                                      batch=8, local_epochs=1, eval_batch=16)
     assert list(by_part) == ["7a_cached_spreadout", "7b_resume", "7c_fc_mining",
                              "7d_plain"]
-    assert all(v == {"max_sim": 0, "roc_hist": 0} for v in by_part.values())
+    assert all(v == NO_LAUNCHES for v in by_part.values())
+
+
+def test_chip_smoke_reference_phase_rehearsed_on_cpu(smoke_root, tmp_path, monkeypatch):
+    """The smoke's phase 8 (run.sh's round on the synth: universe through
+    the CLI, one local-eval candidate, the launch-shape, batch-count, span
+    and memory checks) on a tiny universe and toy widths on the CPU."""
+    spec = ("synth:imgs_min=5,imgs_max=7,public_ids=40,public_imgs=90,"
+            "veri_ids=120,veri_imgs=3")
+    argv = chip_smoke.reference_args(os.path.join(smoke_root, "val"),
+                                     str(tmp_path / "ref"))
+    for flag, value in (("--network", "toy"), ("--embedding_size", "16"),
+                        ("--image_size", str(IMG)), ("--com_batch_size", "8"),
+                        ("--eval_batch_size", "16"), ("--public_batch_size", "16"),
+                        ("--num_ids", "120"), ("--HN_cap", "20"),
+                        ("--rec_root", spec), ("--local_rec", spec)):
+        argv[argv.index(flag) + 1] = value
+    argv += ["--device", "cpu", "--num_workers", "2"]
+    # the universe's sizes: 90 public and 120 x 3 veri images, 3 x 3 targets
+    monkeypatch.setattr(chip_smoke, "REF_PUBLIC", 90)
+    monkeypatch.setattr(chip_smoke, "REF_VERI", 360)
+    monkeypatch.setattr(chip_smoke, "REF_TARGETS", 9)
+    assert chip_smoke.phase_reference(argv) == NO_LAUNCHES

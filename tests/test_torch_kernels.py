@@ -7,10 +7,12 @@ card and no JAX it runs alone:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
 
+import numpy as np
 import pytest
 import torch
 
-from fedfr_tpu_torch.ops import max_sim, roc_hist
+from fedfr_tpu_torch.data import synthetic
+from fedfr_tpu_torch.ops import max_sim, roc_hist, synth_gen
 
 
 def _unit_rows(n, e, gen):
@@ -201,3 +203,30 @@ def test_roc_hist_wrapper_rejects_bad_inputs():
         roc_hist.roc_histogram(torch.randn(10, 32, device="cuda")[:, ::2], labels, 5)
     with pytest.raises(ValueError):
         roc_hist.roc_histogram(feats, labels.cpu(), 5)
+
+
+# The synth: generator: its images are integers, so the kernel must equal
+# its plain version byte for byte (every float op rounded alone, in JAX's
+# order, on both).
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [
+    "synth:", "synth:expr=0.5,shift_div=4", "synth:image_size=64,block=8,noise=40"])
+def test_synth_gen_kernel_bitwise_equal_to_plain(spec):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    universe = synthetic.build_fl_synthetic(synthetic.parse_synth_spec(spec),
+                                            device="cuda")
+    rng = np.random.default_rng(3)
+    parts = [ds.synth_vectors(rng.integers(0, len(ds), 40))[:5]
+             for ds in (universe["clients"][5], universe["public"], universe["veri"])]
+    vecs = [torch.from_numpy(np.concatenate(v)).cuda() for v in zip(*parts)]
+    ds = universe["public"]
+    args = (synth_gen.tf.prng_key(ds.seed), ds.image_size, ds.noise, ds.block,
+            ds.expr, ds.shift_div)
+    before = synth_gen.synth_gen_launches
+    got = synth_gen.synth_generate(*vecs, *args)
+    want = synth_gen.synth_generate_plain(*vecs, *args)
+    torch.cuda.synchronize()
+    assert synth_gen.synth_gen_launches == before + 1
+    assert got.shape == (120, ds.image_size, ds.image_size, 3)
+    assert int((got != want).sum()) == 0

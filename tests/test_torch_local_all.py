@@ -196,9 +196,11 @@ def test_local_1n_evaluation_matches_jax():
 
 
 def test_synth_data_dir_raises(tmp_path):
+    """A synth: data dir whose spec contradicts the flags raises, as in the
+    JAX CLI (tests/test_torch_synthetic.py runs it on agreeing ones)."""
     args = _args("unused", str(tmp_path), "multi", "1:1")
-    args.data_dir = "synth:clients=2"
-    with pytest.raises(NotImplementedError, match="item 8"):
+    args.data_dir = "synth:clients=3"
+    with pytest.raises(ValueError, match="clients=3"):
         local_all.main(args)
 
 
