@@ -35,8 +35,11 @@ Phases, in order (any failure raises and the script exits non-zero):
    * synth_gen (the synth: image generator, JAX's threefry): 0 differing
      bytes against the plain version on 4,096 images of the reference
      universe (``synth:``; client, blended-public and veri positions) and on
-     1,024 with expr=0.5, shift_div=4; the kernel and the plain version
-     timed per 512-image batch; one whole 420,671-image public pass timed
+     1,024 with expr=0.5, shift_div=4, 512 a launch, and on one launch of
+     256 and of a ragged 257; the kernel timed per batch of 256 (the
+     combined training batch) and 512 (the embeds), each beside its bound,
+     with its grid (blocks, blocks per SM, chunk, fill), registers and
+     bytes per thread; the plain version per 512; one whole 420,671-image public pass timed
      twice, the kernel alone over the pass's 822 batches (CUDA events) and
      through the dataset's own batches (wall clock); the bound from the
      instructions the function needs, by the rate of each pipe they share.
@@ -313,6 +316,10 @@ def phase_build() -> None:
     cfg = roc_hist_mod.kernel_config(0)
     log("build", kernel="roc_hist", threads=cfg["threads"],
         smem_bytes=cfg["smem_bytes"], blocks_per_sm=cfg["blocks_per_sm"])
+    cfg = synth_gen_mod.kernel_config(0, 112, 4)
+    log("build", kernel="synth_gen", threads=cfg["threads"], run_bytes=cfg["run"],
+        registers=cfg["registers"], smem_bytes=cfg["smem_bytes"],
+        blocks_per_sm=cfg["blocks_per_sm"], sms=cfg["sms"])
 
 
 # ---------------------------------------------------------------- phase 3
@@ -614,23 +621,23 @@ def _synth_vectors(universe: dict, n: int, seed: int):
     return [torch.from_numpy(v).cuda() for v in vecs]
 
 
-def check_synth_gen(spec: str, n: int, seed: int) -> dict:
+def check_synth_gen(spec: str, n: int, seed: int, batch: int = 512) -> dict:
     """The kernel against its plain version on ``n`` images of the spec's
-    universe, 512 at a time: 0 differing bytes."""
+    universe, ``batch`` at a time: 0 differing bytes."""
     universe = synthetic.build_fl_synthetic(synthetic.parse_synth_spec(spec), "cuda")
     ds = universe["public"]
     args = (synth_gen_mod.tf.prng_key(ds.seed), ds.image_size, ds.noise, ds.block,
             ds.expr, ds.shift_div)
     vecs = _synth_vectors(universe, n, seed)
     diff, err = 0, 0
-    for s0 in range(0, n, 512):
-        part = [v[s0:s0 + 512] for v in vecs]
+    for s0 in range(0, n, batch):
+        part = [v[s0:s0 + batch] for v in vecs]
         got = synth_gen_mod.synth_generate(*part, *args)
         want = synth_gen_mod.synth_generate_plain(*part, *args)
         diff += int((got != want).sum())
         err = max(err, int((got.int() - want.int()).abs().max()))
     blended = int((vecs[3] > 0).sum())
-    log("kernels", case=f"synth_gen {spec} {n} images", differing_bytes=diff,
+    log("kernels", case=f"synth_gen {spec} {n} images, {batch} a launch", differing_bytes=diff,
         max_abs_err=err, bytes=n * ds.image_size ** 2 * 3, blended_images=blended)
     if diff:
         raise AssertionError(f"synth_gen {spec}: {diff} bytes differ from the plain version")
@@ -651,23 +658,42 @@ def synth_bound_ms(nbytes: int) -> dict:
 
 
 def phase_synth_gen(n_public: int) -> dict:
-    """The generator's gate (bitwise, on 4,096 images of the reference
-    universe and 1,024 with expr=0.5, shift_div=4), its times per 512-image
-    batch (kernel, plain version), and one whole public pass of
-    ``n_public`` images, measured twice: the kernel alone over the pass's
-    own batches (their vectors on the card first; CUDA events), and through
-    the dataset's own batches (host vectors and their copy included; wall
-    clock); each beside its bound."""
+    """The generator's gates (bitwise: 4,096 images of the reference
+    universe and 1,024 with expr=0.5, shift_div=4, 512 a launch; 256 and a
+    ragged 257 in one launch each), its times per batch of 256 (the
+    combined training batch) and 512 (the embeds), the plain version's
+    time, and one whole public pass of ``n_public`` images, measured twice:
+    the kernel alone over the pass's own batches (their vectors on the card
+    first; CUDA events), and through the dataset's own batches (host
+    vectors and their copy included; wall clock); each beside its bound,
+    with the grid."""
     launches = synth_gen_mod.synth_gen_launches
-    ref = check_synth_gen("synth:", 4096, seed=21)
-    small = check_synth_gen("synth:expr=0.5,shift_div=4", 1024, seed=22)
-    batch = [v[:512] for v in ref["vecs"]]
+    gates = [check_synth_gen("synth:", 4096, seed=21),
+             check_synth_gen("synth:expr=0.5,shift_div=4", 1024, seed=22),
+             check_synth_gen("synth:", 256, seed=23, batch=256),
+             check_synth_gen("synth:", 257, seed=24, batch=257)]
+    ref = gates[0]
     args = ref["args"]
-    ms = cuda_ms(lambda: synth_gen_mod.synth_generate(*batch, *args), 7,
-                 "synth_gen kernel, 512 images", batch=20)
+    public = ref["universe"]["public"]
+    size = public.image_size
+    by_batch = {}
+    for b in (256, 512):
+        batch = [v[:b] for v in ref["vecs"]]
+        ms = cuda_ms(lambda: synth_gen_mod.synth_generate(*batch, *args), 7,
+                     f"synth_gen kernel, {b} images", batch=20)
+        bound = synth_bound_ms(b * size * size * 3)
+        grid = synth_gen_mod.launch_grid(b, size, public.block, 0)
+        by_batch[b] = {"ms": ms, "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+                       "bound_share": bound["bound_ms"] / ms, "blocks": grid["blocks"],
+                       "chunk_runs": grid["chunk"], "fill": grid["fill"]}
+        log("kernels", shape=f"synth_gen {b}x{size}x{size}x3", ms=ms,
+            **{f"{k}_bound_ms": v for k, v in bound.items() if k not in ("bound_ms", "bound_by")},
+            bound_ms=bound["bound_ms"], bound_share=bound["bound_ms"] / ms,
+            grid_blocks=grid["blocks"], blocks_per_sm=grid["blocks_per_sm"],
+            chunk_runs=grid["chunk"], fill=grid["fill"])
+    batch = [v[:512] for v in ref["vecs"]]
     plain_ms = cuda_ms(lambda: synth_gen_mod.synth_generate_plain(*batch, *args), 3,
                        "synth_gen plain, 512 images")
-    public = ref["universe"]["public"]
     starts = range(0, n_public, 512)
     vecs = [torch.from_numpy(v).cuda()
             for v in public.synth_vectors(np.arange(n_public))[:5]]
@@ -684,28 +710,33 @@ def phase_synth_gen(n_public: int) -> dict:
     torch.cuda.synchronize()
     pass_s = time.perf_counter() - t0
     synth_gen_mod.synth_gen_launches = launches
-    size = public.image_size
-    bound = synth_bound_ms(512 * size * size * 3)
+    cfg = synth_gen_mod.kernel_config(0, size, public.block)
     pass_bound = synth_bound_ms(n_public * size * size * 3)
     record = {
         "name": "synth_gen", "route": "cuda",
         "source": "fedfr_tpu_torch/csrc/synth_gen.cu",
         "replaces": "fedfr_tpu/data/synthetic.py:83 (XLA-fused jitted gen; no Pallas kernel)",
         "launches": None,
-        "max_abs_err": max(ref["max_abs_err"], small["max_abs_err"]),
-        "differing_bytes": ref["differing_bytes"] + small["differing_bytes"],
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
-        "bound_by": bound["bound_by"], "library_ms": None, "batch_images": 512,
+        "max_abs_err": max(g["max_abs_err"] for g in gates),
+        "differing_bytes": sum(g["differing_bytes"] for g in gates),
+        "ms": by_batch[512]["ms"], "plain_ms": plain_ms,
+        "bound_ms": by_batch[512]["bound_ms"], "bound_by": by_batch[512]["bound_by"],
+        "library_ms": None, "batch_images": 512,
+        "by_batch": by_batch, "threads": cfg["threads"], "bytes_per_thread": cfg["run"],
+        "registers": cfg["registers"], "blocks_per_sm": cfg["blocks_per_sm"],
+        "grid_blocks": by_batch[512]["blocks"],
         "public_pass_images": n_public, "public_pass_batches": len(starts),
         "public_pass_kernel_ms": pass_ms, "public_pass_s": pass_s,
         "public_pass_bound_ms": pass_bound["bound_ms"],
+        "public_pass_bound_share": pass_bound["bound_ms"] / pass_ms,
     }
-    log("kernels", shape=f"synth_gen 512x{size}x{size}x3", ms=ms, plain_ms=plain_ms,
-        **{f"{k}_bound_ms": v for k, v in bound.items() if k not in ("bound_ms", "bound_by")},
-        bound_ms=bound["bound_ms"], bound_share=bound["bound_ms"] / ms,
-        public_pass_kernel_ms=pass_ms, public_pass_s=pass_s,
-        public_pass_batches=len(starts), public_pass_bound_ms=pass_bound["bound_ms"])
-    del ref, small, batch, vecs
+    log("kernels", synth_gen_ms_512=by_batch[512]["ms"], plain_ms=plain_ms,
+        registers=cfg["registers"], bytes_per_thread=cfg["run"],
+        blocks_per_sm=cfg["blocks_per_sm"], public_pass_kernel_ms=pass_ms,
+        public_pass_s=pass_s, public_pass_batches=len(starts),
+        public_pass_bound_ms=pass_bound["bound_ms"],
+        public_pass_bound_share=pass_bound["bound_ms"] / pass_ms)
+    del ref, gates, batch, vecs
     torch.cuda.empty_cache()
     return record
 

@@ -15,20 +15,43 @@
 // key injections, 72 instructions each at least) and JAX's uint32 randint
 // arithmetic (three remainders by the span): ~157 instructions a byte
 // against one byte written.  So it is bound by instruction issue (132 SMs x
-// 128 lanes x 1.98 GHz = 33.5 T/s; only the xors must use the 64-lane ALU
-// pipe), not by the bytes (3.35 TB/s): about 0.09 ms against 0.006 ms for a
-// 512-image batch at 112x112.  chip_smoke.py counts the instructions.
+// 128 lanes x 1.98 GHz = 33.5 T/s), not by the bytes (3.35 TB/s): 0.0904 ms
+// against 0.006 ms for a 512-image batch at 112x112 (chip_smoke.py,
+// synth_bound_ms, counts the instructions).
 //
-// Design.  One block per image.  A prologue puts the image's constants in
-// shared memory, each computed by one thread: the blended template
-// (1 - bw) * T[gid] + bw * T[bgid] (block x block x 3 values, one a thread,
-// then under expr > 0 blended toward the distractor T[dgid] with weight u),
-// the contrast scale, the brightness offset, the roll (dy, dx) and the two
-// split keys of the noise.  Then every thread walks the image's output bytes
-// with a stride of the block size, so that a warp writes 32 neighbouring
-// bytes: it finds the pre-roll pixel ((y - dy) mod S, (x - dx) mod S), draws
-// the noise at that pixel's flat index (jnp.roll comes after the noise),
-// and writes clip(((T + n) * scale) + offset, 0, 255) truncated to uint8.
+// Design, for Hopper (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W:
+// 0.0794-0.0838 ms per 256 images and 0.1468-0.1506 per 512, 0.54-0.57 and
+// 0.60-0.62 of the bound; the one-block-an-image kernel with divisions in
+// its byte loop took 0.2435 per 512; PERF.md gives each lever's figure):
+// - The byte loop divides by nothing known only at run time.  The noise's
+//   three remainders by its span 2 * noise + 1 are one 64-bit multiply-add
+//   and a shift each, exact for every uint32 numerator (FastMod; the host
+//   computes the magic numbers once, ops/synth_gen.py::fastmod_magic).
+// - A thread owns runs of RUN = 4 consecutive output bytes of one row.  Per
+//   run it finds its pre-roll row ys and byte bs (the roll moves a row's
+//   bytes by 3 dx, and pre-roll byte bs of row ys draws its noise at flat
+//   index ys * 3 S + bs), steps bs with a compare-and-wrap, takes the
+//   template's row and column from two small shared tables, and stores the
+//   run as one 4-byte word.  The run's 8 hashes are independent chains,
+//   which hides the add-rotate-xor latency.  Sizes whose rows are not a
+//   multiple of RUN bytes take the same kernel with runs of one byte.
+// - One wave of equal chunks: the batch's runs, flat over images, are cut
+//   into as many chunks of whole warps as the card holds blocks at once
+//   (the kernel's own occupancy query), one a block, so the card fills at
+//   every batch size, ragged ones included.  A chunk spans at most KMAX
+//   images.
+// - The block computes its chunk's image constants once, at its start,
+//   into shared memory, the per-template work hoisted: fold_in(master, g)
+//   and randint's split keys once per template (gid, bgid and, under expr
+//   > 0, the distractor); then one thread a template value (block x block
+//   x 3 of them) draws and blends it, and one thread each draws an image's
+//   scalars (contrast scale, brightness offset, roll dy and dx, the noise's
+//   split keys, the distractor's weight and id).  No barrier or prologue
+//   interrupts the byte loop.  Templates of more than 48 KB in all (block
+//   32 and up) take the SM's opted-in shared memory.
+// What binds now: the loop's SASS holds ~180.5 instructions a byte, 108.8 on
+// the 64-lane ALU pipe (the hashes' 40 rotations and 42 xors among them) and
+// 67.8 IMADs on the FMA pipe, and runs at ~0.83 of the ALU pipe's rate.
 //
 // Numbers.  JAX computes each float op rounded on its own in this order; a
 // fused multiply-add would round once and can move a pixel across an integer
@@ -37,9 +60,10 @@
 // JAX's does (randint's multiplier ((2^16 % span)^2) % span is 0 for the
 // distractor's span 2^30 - 2^26).
 //
-// Interface: a plain C function (built with nvcc into a shared library and
-// called through ctypes) that launches on the caller's stream, does not
-// synchronise, and returns cudaGetLastError().
+// Interface: plain C functions (built with nvcc into a shared library and
+// called through ctypes): the launch runs on the caller's stream, does not
+// synchronise, and returns cudaGetLastError(); the config call reports the
+// run length, occupancy and registers the wrapper sizes the grid from.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,10 +71,13 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int TEMPLATE_LO = 30, TEMPLATE_HI = 226;
+constexpr int RUN = 4;  // bytes a thread owns per run: one 4-byte store
+constexpr int32_t TEMPLATE_LO = 30, TEMPLATE_HI = 226;
 constexpr int32_t DISTRACTOR_LO = 1 << 26, DISTRACTOR_HI = 1 << 30;
+constexpr int32_t OFFSET_LO = -20, OFFSET_HI = 21;
 constexpr uint32_t DSEED_BASE = 1u << 30;
-constexpr int N_SCALARS = 7;  // scale, offset, dy, dx, noise keys, u, dgid
+constexpr int N_SCALAR_THREADS = 7;  // scale, offset, dy, dx, noise keys, u, dgid
+constexpr int KMAX = 4;              // images a block's chunk may span
 
 struct Key {
   uint32_t a, b;
@@ -93,128 +120,302 @@ __device__ __forceinline__ uint32_t bits32(Key k, uint32_t idx) {
   return o.a ^ o.b;
 }
 
-// jax.random.randint(key, shape, minval, maxval) for int32: the per-key part
-struct RandInt {
-  Key k1, k2;
-  uint32_t span, mult;
-  int32_t minval;
+// n % d for every uint32 n, without a division: n / d = (n * m + a) >> (32
+// + l), one 64-bit multiply-add and a shift (Granlund and Montgomery 1994,
+// theorem 4.2, with m rounded up and a = 0, or Robison 2005, with m rounded
+// down and a = m, whichever is exact for d; ops/synth_gen.py::fastmod_magic)
+struct FastMod {
+  uint32_t d, m, a, l;
+  __device__ __forceinline__ uint32_t operator()(uint32_t n) const {
+    const uint32_t q = (uint32_t)(((uint64_t)n * m + a) >> 32) >> l;
+    return n - q * d;
+  }
 };
 
-__device__ RandInt randint_setup(Key k, int32_t minval, int32_t maxval) {
-  RandInt r;
-  r.k1 = threefry2x32(k, 0u, 0u);  // the fold-like split
-  r.k2 = threefry2x32(k, 0u, 1u);
-  r.span = maxval > minval ? (uint32_t)maxval - (uint32_t)minval : 1u;
-  const uint32_t m = 65536u % r.span;
-  r.mult = (m * m) % r.span;  // wraps, as JAX's uint32 multiply does
-  r.minval = minval;
-  return r;
+// a remainder off the byte loop (per image or per template value)
+struct PlainMod {
+  uint32_t d;
+  __device__ __forceinline__ uint32_t operator()(uint32_t n) const { return n % d; }
+};
+
+// jax.random.randint(key, shape, minval, maxval) for int32: the two split
+// keys of its key, and its per-element arithmetic on their bits
+struct Split {
+  Key k1, k2;
+};
+
+__device__ __forceinline__ Split split(Key k) {
+  return {threefry2x32(k, 0u, 0u), threefry2x32(k, 0u, 1u)};
 }
 
-__device__ __forceinline__ int32_t randint_at(const RandInt& r, uint32_t idx) {
-  const uint32_t hi = bits32(r.k1, idx), lo = bits32(r.k2, idx);
-  const uint32_t off = ((hi % r.span) * r.mult + lo % r.span) % r.span;
-  return (int32_t)((uint32_t)r.minval + off);
+__host__ __device__ constexpr uint32_t randint_span(int32_t lo, int32_t hi) {
+  return hi > lo ? (uint32_t)hi - (uint32_t)lo : 1u;
+}
+
+__host__ __device__ constexpr uint32_t randint_mult(uint32_t span) {
+  return ((65536u % span) * (65536u % span)) % span;  // wraps, as JAX's does
+}
+
+template <typename Mod>
+__device__ __forceinline__ int32_t randint_at(const Split& s, uint32_t idx, int32_t minval,
+                                              uint32_t mult, const Mod& mod) {
+  const uint32_t hi = bits32(s.k1, idx), lo = bits32(s.k2, idx);
+  return (int32_t)((uint32_t)minval + mod(mod(hi) * mult + mod(lo)));
+}
+
+__device__ __forceinline__ int32_t scalar_int(Key k, int32_t lo, int32_t hi) {
+  const uint32_t span = randint_span(lo, hi);
+  return randint_at(split(k), 0u, lo, randint_mult(span), PlainMod{span});
 }
 
 __device__ __forceinline__ float uniform_at(Key k, uint32_t idx) {
   return __fsub_rn(__uint_as_float((bits32(k, idx) >> 9) | 0x3F800000u), 1.0f);
 }
 
-__device__ __forceinline__ float template_value(Key master, uint32_t gid, int i) {
-  return (float)randint_at(randint_setup(fold_in(master, gid), TEMPLATE_LO,
-                                         TEMPLATE_HI), (uint32_t)i);
+__device__ __forceinline__ float template_value(const Split& s, int i) {
+  constexpr uint32_t span = randint_span(TEMPLATE_LO, TEMPLATE_HI);
+  return (float)randint_at(s, (uint32_t)i, TEMPLATE_LO, randint_mult(span), PlainMod{span});
 }
 
-__global__ void __launch_bounds__(THREADS)
-synth_gen_kernel(const int32_t* __restrict__ keys, const int32_t* __restrict__ gids,
-                 const int32_t* __restrict__ bgids, const float* __restrict__ bw,
-                 const int32_t* __restrict__ dseeds, Key master, int size,
-                 int noise, int block, float expr, int shift_div,
-                 uint8_t* __restrict__ out) {
-  extern __shared__ float s_base[];  // block x block x 3 template
-  __shared__ RandInt s_noise;
-  __shared__ float s_scale, s_u;
-  __shared__ int32_t s_offset, s_dy, s_dx;
-  __shared__ uint32_t s_dgid;
+struct Params {
+  const int32_t *keys, *gids, *bgids, *dseeds;
+  const float* bw;
+  Key master;
+  int size, noise, block, shift_div;
+  float expr;
+  FastMod noise_mod;  // by the noise's span
+  long long runs;     // B x the image's runs
+  long long chunk;    // runs a block: at most (KMAX - 1) images' worth
+  uint8_t* out;
+};
 
-  const int img = blockIdx.x;
-  const int n_t = block * block * 3;
-  const Key ki = fold_in(fold_in(master, DSEED_BASE + (uint32_t)dseeds[img]),
-                         (uint32_t)keys[img]);
-  const int amp = size / shift_div;
+// an image's constants, beside its blended template in shared memory
+struct Image {
+  Split noise;
+  float scale, offset, u;
+  int32_t dy, dx;
+};
 
-  for (int t = threadIdx.x; t < n_t + N_SCALARS; t += blockDim.x) {
-    if (t < n_t) {
-      const float w = bw[img];
-      s_base[t] = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, w),
-                                      template_value(master, (uint32_t)gids[img], t)),
-                            __fmul_rn(w, template_value(master, (uint32_t)bgids[img], t)));
-      continue;
-    }
-    switch (t - n_t) {
-      case 0:
-        s_scale = __fadd_rn(0.75f, __fmul_rn(0.5f, uniform_at(fold_in(ki, 1u), 0u)));
-        break;
-      case 1:
-        s_offset = randint_at(randint_setup(fold_in(ki, 2u), -20, 21), 0u);
-        break;
-      case 2:
-        s_dy = randint_at(randint_setup(fold_in(ki, 3u), -amp, amp + 1), 0u);
-        break;
-      case 3:
-        s_dx = randint_at(randint_setup(fold_in(ki, 4u), -amp, amp + 1), 0u);
-        break;
-      case 4:
-        s_noise = randint_setup(fold_in(ki, 0u), -noise, noise + 1);
-        break;
-      case 5:
-        s_u = __fmul_rn(expr, uniform_at(fold_in(ki, 5u), 0u));
-        break;
-      default:
-        s_dgid = (uint32_t)randint_at(
-            randint_setup(fold_in(ki, 6u), DISTRACTOR_LO, DISTRACTOR_HI), 0u);
+size_t smem_bytes(int size, int block) {
+  // KMAX templates (floats), then the column and row tables (ints)
+  return sizeof(float) * (KMAX * (size_t)block * block * 3 + (size_t)size * 3 + size);
+}
+
+// one output byte from its noise draw at flat index idx and its template
+// value, in JAX's order of rounded float ops
+__device__ __forceinline__ uint32_t pixel(const Split& nk, uint32_t idx, float base,
+                                          int32_t nmin, uint32_t nmult, const FastMod& nmod,
+                                          float scale, float offset) {
+  const float n = (float)randint_at(nk, idx, nmin, nmult, nmod);
+  const float v = __fadd_rn(__fmul_rn(__fadd_rn(base, n), scale), offset);
+  return __float2uint_rz(fminf(fmaxf(v, 0.0f), 255.0f));
+}
+
+template <int R>
+__global__ void __launch_bounds__(THREADS) synth_gen_kernel(const Params p) {
+  static_assert(R == 1 || R == RUN, "a run is one byte or one 4-byte word");
+  extern __shared__ float s_base[];  // KMAX blended templates, block x block x 3 each
+  __shared__ Split s_tsplit[KMAX][3];  // T[gid], T[bgid], T[dgid] of each image
+  __shared__ Image s_img[KMAX];
+
+  const int size = p.size, block = p.block, rep = size / block;
+  const int row_bytes = 3 * size, n_t = block * block * 3;
+  // template byte of a pre-roll row byte bs, and template row of a row ys
+  int* s_col = reinterpret_cast<int*>(s_base + KMAX * n_t);
+  int* s_trow = s_col + row_bytes;
+  for (int i = threadIdx.x; i < row_bytes; i += THREADS)
+    s_col[i] = (i / 3 / rep) * 3 + i % 3;
+  for (int i = threadIdx.x; i < size; i += THREADS) s_trow[i] = (i / rep) * block * 3;
+
+  const int runs_row = row_bytes / R, runs_img = size * runs_row;
+  const long long begin = blockIdx.x * p.chunk;
+  const long long end = begin + p.chunk < p.runs ? begin + p.chunk : p.runs;
+  const int img0 = (int)(begin / runs_img);
+  const int n_img = (int)((end - 1) / runs_img) - img0 + 1;  // <= KMAX
+
+  // the constants of the chunk's images: each template's split keys and each
+  // image's scalars (16 threads an image), then the template values
+  const int t = threadIdx.x, k = t / 16, role = t % 16;
+  if (k < n_img && role < 2 + N_SCALAR_THREADS) {
+    const int img = img0 + k;
+    const int amp = size / p.shift_div;
+    if (role < 2) {
+      s_tsplit[k][role] = split(fold_in(p.master, (uint32_t)(role == 0 ? p.gids : p.bgids)[img]));
+    } else {
+      const Key ki = fold_in(fold_in(p.master, DSEED_BASE + (uint32_t)p.dseeds[img]),
+                             (uint32_t)p.keys[img]);
+      Image& im = s_img[k];
+      switch (role - 2) {
+        case 0:
+          im.scale = __fadd_rn(0.75f, __fmul_rn(0.5f, uniform_at(fold_in(ki, 1u), 0u)));
+          break;
+        case 1:
+          im.offset = (float)scalar_int(fold_in(ki, 2u), OFFSET_LO, OFFSET_HI);
+          break;
+        case 2:
+          im.dy = scalar_int(fold_in(ki, 3u), -amp, amp + 1);
+          break;
+        case 3:
+          im.dx = scalar_int(fold_in(ki, 4u), -amp, amp + 1);
+          break;
+        case 4:
+          im.noise = split(fold_in(ki, 0u));
+          break;
+        case 5:
+          im.u = __fmul_rn(p.expr, uniform_at(fold_in(ki, 5u), 0u));
+          break;
+        default:
+          if (p.expr > 0.0f)
+            s_tsplit[k][2] = split(fold_in(p.master, (uint32_t)scalar_int(
+                fold_in(ki, 6u), DISTRACTOR_LO, DISTRACTOR_HI)));
+      }
     }
   }
   __syncthreads();
-  if (expr > 0.0f) {
-    const float u = s_u;
-    for (int t = threadIdx.x; t < n_t; t += blockDim.x)
-      s_base[t] = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, u), s_base[t]),
-                            __fmul_rn(u, template_value(master, s_dgid, t)));
-    __syncthreads();
+  for (int f = t; f < n_img * n_t; f += THREADS) {
+    const int kk = f / n_t, i = f - kk * n_t, img = img0 + kk;
+    const Split sg = s_tsplit[kk][0], sb = s_tsplit[kk][1];
+    const float w = p.bw[img];
+    float v = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, w), template_value(sg, i)),
+                        __fmul_rn(w, template_value(sb, i)));
+    if (p.expr > 0.0f) {
+      const float u = s_img[kk].u;
+      v = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, u), v),
+                    __fmul_rn(u, template_value(s_tsplit[kk][2], i)));
+    }
+    s_base[f] = v;
   }
+  __syncthreads();
 
-  const RandInt rn = s_noise;
-  const float scale = s_scale, offset = (float)s_offset;
-  const int dy = s_dy, dx = s_dx, rep = size / block, row = size * 3;
-  const int n_out = size * row;
-  uint8_t* dst = out + (size_t)img * n_out;
-  for (int o = threadIdx.x; o < n_out; o += blockDim.x) {
-    const int y = o / row, r = o - y * row, x = r / 3, c = r - x * 3;
-    int ys = (y - dy) % size, xs = (x - dx) % size;
-    ys += ys < 0 ? size : 0;
-    xs += xs < 0 ? size : 0;
-    const float n = (float)randint_at(rn, (uint32_t)((ys * size + xs) * 3 + c));
-    const float base = s_base[((ys / rep) * block + xs / rep) * 3 + c];
-    float v = __fadd_rn(__fmul_rn(__fadd_rn(base, n), scale), offset);
-    v = fminf(fmaxf(v, 0.0f), 255.0f);
-    dst[o] = (uint8_t)__float2uint_rz(v);
+  // the byte loop: the chunk's runs, THREADS apart, image after image
+  const FastMod nmod = p.noise_mod;
+  const uint32_t nmult = randint_mult(nmod.d);
+  const int32_t nmin = -p.noise;
+  const int step_rows = THREADS / runs_row, step_col = THREADS % runs_row;
+  long long q = begin + t;
+  for (int kk = 0; kk < n_img; ++kk) {
+    const long long img_begin = (long long)(img0 + kk) * runs_img;
+    const long long img_end = img_begin + runs_img < end ? img_begin + runs_img : end;
+    if (q >= img_end) continue;
+    const Image& im = s_img[kk];
+    const Split nk = im.noise;
+    const float scale = im.scale, offset = im.offset;
+    const int dy = im.dy, dxb = 3 * im.dx;
+    const float* tmpl = s_base + kk * n_t;
+    const int ql = (int)(q - img_begin), n_runs = (int)((img_end - q + THREADS - 1) / THREADS);
+    int y = ql / runs_row, col = ql - y * runs_row;
+    uint8_t* dst = p.out + (size_t)q * R;
+    q += (long long)n_runs * THREADS;
+    for (int r = 0; r < n_runs; ++r, dst += THREADS * R) {
+      int ys = y - dy;  // |dy| <= size: one wrap at most
+      ys += ys < 0 ? size : 0;
+      ys -= ys >= size ? size : 0;
+      int bs = col * R - dxb;  // |3 dx| <= row_bytes
+      bs += bs < 0 ? row_bytes : 0;
+      bs -= bs >= row_bytes ? row_bytes : 0;
+      const uint32_t row_idx = (uint32_t)(ys * row_bytes);
+      const float* trow = tmpl + s_trow[ys];
+      uint32_t word = 0;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int b = bs + j >= row_bytes ? bs + j - row_bytes : bs + j;
+        const uint32_t byte = pixel(nk, row_idx + (uint32_t)b, trow[s_col[b]], nmin, nmult,
+                                    nmod, scale, offset);
+        // byte j of the word from byte 0 of `byte`
+        word = j == 0 ? byte : __byte_perm(word, byte, j == 1 ? 0x3240u
+                                                     : j == 2 ? 0x3410u : 0x4210u);
+      }
+      if constexpr (R == RUN)
+        *reinterpret_cast<uint32_t*>(dst) = word;
+      else
+        *dst = (uint8_t)word;
+      y += step_rows;
+      col += step_col;
+      if (col >= runs_row) {
+        col -= runs_row;
+        ++y;
+      }
+    }
   }
+}
+
+// the run length for an image size: RUN where a row is whole runs, else 1
+int run_for(int size) { return (3 * size) % RUN == 0 ? RUN : 1; }
+
+// lets the kernel take `smem` dynamic shared bytes, above the default 48 KB
+// where the SM opts them in; fails where it cannot
+template <int R>
+cudaError_t fit_smem(int device, size_t smem) {
+  int optin = 0;
+  cudaFuncAttributes attr{};
+  cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, synth_gen_kernel<R>);
+  if (err != cudaSuccess) return err;
+  if (smem + attr.sharedSizeBytes > (size_t)optin) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(synth_gen_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+template <int R>
+cudaError_t occupancy(int device, size_t smem, int* cfg) {
+  int blocks = 0, sms = 0;
+  cudaFuncAttributes attr{};
+  cudaError_t err = fit_smem<R>(device, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, synth_gen_kernel<R>, THREADS,
+                                                        smem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, synth_gen_kernel<R>);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cfg[0] = THREADS; cfg[1] = R; cfg[2] = blocks; cfg[3] = attr.numRegs; cfg[4] = sms;
+  cfg[5] = (int)smem; cfg[6] = KMAX;
+  return err;
 }
 
 }  // namespace
 
+// cfg <- threads, run bytes, blocks per SM, registers per thread, SMs,
+// dynamic shared bytes, images a chunk may span, for images of `size` with
+// `block` x `block` templates
+extern "C" int fedfr_synth_gen_config(int device, int size, int block, int* cfg) {
+  if (size < 1 || block < 1 || size % block != 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = smem_bytes(size, block);
+  return (int)(run_for(size) == RUN ? occupancy<RUN>(device, smem, cfg)
+                                    : occupancy<1>(device, smem, cfg));
+}
+
+// `run` and `chunk` from the wrapper (ops/synth_gen.py::launch_grid): the
+// run length fedfr_synth_gen_config reported, and the runs each block
+// takes; (noise_m, noise_a, noise_l) the magic of the noise's span
 extern "C" int fedfr_synth_gen(const void* keys, const void* gids, const void* bgids,
                                const void* bw, const void* dseeds, unsigned master0,
                                unsigned master1, int batch, int size, int noise,
-                               int block, float expr, int shift_div, void* out,
-                               void* stream) {
-  const size_t smem = (size_t)block * block * 3 * sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  synth_gen_kernel<<<batch, THREADS, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)keys, (const int32_t*)gids, (const int32_t*)bgids,
-      (const float*)bw, (const int32_t*)dseeds, Key{master0, master1}, size, noise,
-      block, expr, shift_div, (uint8_t*)out);
+                               int block, float expr, int shift_div, unsigned noise_m,
+                               unsigned noise_a, int noise_l, int run, long long chunk,
+                               int device, void* out, void* stream) {
+  const size_t smem = smem_bytes(size, block);
+  if (size < 1 || block < 1 || size % block != 0 || shift_div < 1 ||
+      run != run_for(size) || reinterpret_cast<uintptr_t>(out) % run != 0 || chunk < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Params p{(const int32_t*)keys, (const int32_t*)gids, (const int32_t*)bgids,
+           (const int32_t*)dseeds, (const float*)bw, Key{master0, master1}, size, noise,
+           block, shift_div, expr,
+           FastMod{randint_span(-noise, noise + 1), noise_m, noise_a, (uint32_t)noise_l},
+           (long long)batch * size * (3 * size / run), chunk, (uint8_t*)out};
+  if (chunk > (long long)(KMAX - 1) * size * (3 * size / run))
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (p.runs + chunk - 1) / chunk;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  if (blocks > 0) {
+    if (smem > 48 * 1024) err = run == RUN ? fit_smem<RUN>(device, smem) : fit_smem<1>(device, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (run == RUN)
+      synth_gen_kernel<RUN><<<(unsigned)blocks, THREADS, smem, (cudaStream_t)stream>>>(p);
+    else
+      synth_gen_kernel<1><<<(unsigned)blocks, THREADS, smem, (cudaStream_t)stream>>>(p);
+  }
   return (int)cudaGetLastError();
 }

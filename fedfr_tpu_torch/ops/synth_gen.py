@@ -26,7 +26,9 @@ multiply-add), so the images are equal byte for byte.
 
 * On a CUDA tensor it launches the hand-written kernel ``csrc/synth_gen.cu``
   (built at first use) on the current stream, without synchronising, and
-  raises if the launch fails.
+  raises if the launch fails.  The kernel's remainders by the noise's span
+  are a 64-bit multiply-add and a shift by ``fastmod_magic``'s constants,
+  and its grid is one wave of equal chunks of the batch (``launch_grid``).
 * On a CPU tensor it runs ``synth_generate_plain``, the same function in
   plain PyTorch on int64 words (``ops/threefry.py``), chunked over images.
   It is the kernel's oracle on the card.
@@ -53,6 +55,44 @@ PLAIN_CHUNK = 64  # images per step of the plain version (~2 KB of int64
                   # temporaries per output byte)
 
 synth_gen_launches = 0
+_configs: dict = {}
+
+
+def fastmod_magic(d: int) -> Tuple[int, int, int]:
+    """``(m, a, l)``, each below 2^32, such that ``n // d == (n * m + a) >>
+    (32 + l)`` for every uint32 ``n``: the kernel's remainder by ``d``
+    without a division.  ``l = floor(log2 d)``; ``m`` is ``2^(32+l) / d``
+    rounded up with ``a = 0`` where that is exact (Granlund and Montgomery
+    1994, theorem 4.2: ``m d - 2^(32+l) <= 2^l``), else rounded down with
+    ``a = m`` (Robison 2005: then ``2^(32+l) - m d <= 2^l``, as the two
+    errors sum to ``d < 2^(l+1)``); a power of two takes ``m = a = 2^32 -
+    1``.  ``1 <= d < 2^32``."""
+    if not 1 <= d < 1 << 32:
+        raise ValueError(f"divisor {d} is not in [1, 2^32)")
+    low = d.bit_length() - 1
+    if d & (d - 1) == 0:
+        return (1 << 32) - 1, (1 << 32) - 1, low
+    up = -(-(1 << (32 + low)) // d)
+    if up * d - (1 << (32 + low)) <= 1 << low:
+        return up, 0, low
+    down = (1 << (32 + low)) // d
+    return down, down, low
+
+
+def fastmod(n: torch.Tensor, d: int) -> torch.Tensor:
+    """``n % d`` for uint32 values ``n`` (int64) by the kernel's arithmetic
+    on ``fastmod_magic(d)``: the high word of the 64-bit ``n * m + a``
+    (``n`` split at 16 bits, so that every product stays below 2^48),
+    shifted by ``l``."""
+    m, a, low = fastmod_magic(d)
+    lo = m * (n & 0xFFFF) + a                     # < 2^49
+    hi = (m * (n >> 16) + (lo >> 16)) >> 16       # (n * m + a) >> 32
+    return n - (hi >> low) * d
+
+
+def noise_span(noise: int) -> int:
+    """The span of the noise's ``randint(-noise, noise + 1)``."""
+    return 2 * noise + 1 if noise >= 0 else 1
 
 
 def check_geometry(size: int, block: int, shift_div: int) -> None:
@@ -143,6 +183,43 @@ def _check(vecs: Tuple[torch.Tensor, ...]) -> None:
             raise ValueError(f"{name} on {t.device}, keys on {dev}")
 
 
+def kernel_config(device: int, size: int, block: int) -> dict:
+    """The built ``csrc/synth_gen.cu`` for images of ``size`` with ``block``
+    x ``block`` templates, cached: threads, run (bytes a thread stores at
+    once), blocks_per_sm (the occupancy query), registers (per thread), sms,
+    smem_bytes, images_per_chunk (the most images a block's chunk may
+    span)."""
+    key = (device, size, block)
+    if key not in _configs:
+        fn = load_kernel("synth_gen").fedfr_synth_gen_config
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        vals = (ctypes.c_int * 7)()
+        err = fn(device, size, block, vals)
+        if err != 0 or vals[2] < 1:
+            raise RuntimeError(f"synth_gen kernel does not fit on an SM at size {size}, "
+                               f"block {block}: CUDA error {err}, {vals[2]} blocks per SM")
+        _configs[key] = dict(zip(("threads", "run", "blocks_per_sm", "registers", "sms",
+                                  "smem_bytes", "images_per_chunk"), vals))
+    return _configs[key]
+
+
+def launch_grid(batch: int, size: int, block: int, device: int) -> dict:
+    """The grid for ``batch`` images: the batch's runs (flat over images)
+    cut into equal chunks of whole warps, one a block, as many as the card
+    runs at once (one wave) unless a chunk would span more than
+    ``images_per_chunk`` images; ``fill`` is the share of the waves' thread
+    steps that hold a run."""
+    cfg = kernel_config(device, size, block)
+    per_image = size * (3 * size // cfg["run"])
+    runs = batch * per_image
+    slots = cfg["sms"] * cfg["blocks_per_sm"]
+    chunk = min(-(-runs // (slots * 32)) * 32, (cfg["images_per_chunk"] - 1) * per_image)
+    blocks = -(-runs // chunk)
+    return {**cfg, "runs": runs, "chunk": chunk, "blocks": blocks,
+            "fill": runs / (-(-blocks // slots) * slots * chunk)}
+
+
 def synth_generate(keys: torch.Tensor, gids: torch.Tensor, bgids: torch.Tensor,
                    bw: torch.Tensor, dseeds: torch.Tensor, master: tf.Key,
                    size: int, noise: int, block: int, expr: float,
@@ -168,15 +245,19 @@ def synth_generate(keys: torch.Tensor, gids: torch.Tensor, bgids: torch.Tensor,
     if keys.shape[0] == 0:
         return out
     vecs = tuple(t.contiguous() for t in vecs)
+    grid = launch_grid(keys.shape[0], size, block, out.device.index)
     fn = load_kernel("synth_gen").fedfr_synth_gen
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_uint, ctypes.c_uint] + \
-        [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_uint,
+                              ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
                               ctypes.c_void_p]
-    stream = torch.cuda.current_stream(keys.device).cuda_stream
-    err = fn(*(t.data_ptr() for t in vecs), master[0], master[1],
-             keys.shape[0], size, noise, block, expr, shift_div, out.data_ptr(),
-             stream)
+    m, a, low = fastmod_magic(noise_span(noise))
+    err = fn(*(t.data_ptr() for t in vecs), master[0], master[1], keys.shape[0],
+             size, noise, block, expr, shift_div, m, a, low, grid["run"],
+             grid["chunk"], out.device.index, out.data_ptr(),
+             torch.cuda.current_stream(out.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"synth_gen kernel launch failed: CUDA error {err}")
     synth_gen_launches += 1

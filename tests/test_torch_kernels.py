@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from fedfr_tpu_torch.data import synthetic
+from fedfr_tpu_torch.data import CombinedDataset, synthetic
 from fedfr_tpu_torch.ops import max_sim, roc_hist, synth_gen
 
 
@@ -207,18 +207,26 @@ def test_roc_hist_wrapper_rejects_bad_inputs():
 
 # The synth: generator: its images are integers, so the kernel must equal
 # its plain version byte for byte (every float op rounded alone, in JAX's
-# order, on both).
+# order, on both).  The batch sizes cover one image, the combined training
+# batch (256) and the embeds' (512), and the ragged sizes beside them: the
+# kernel cuts a batch's runs into one wave of equal chunks, so a chunk may
+# end inside an image.  Templates of block 32 and 64 take more than 48 KB of
+# shared memory in all (four of them a block).
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 255, 256, 257, 512])
 @pytest.mark.parametrize("spec", [
-    "synth:", "synth:expr=0.5,shift_div=4", "synth:image_size=64,block=8,noise=40"])
-def test_synth_gen_kernel_bitwise_equal_to_plain(spec):
+    "synth:", "synth:expr=0.5,shift_div=4", "synth:image_size=64,block=8,noise=40",
+    "synth:image_size=64,block=32", "synth:image_size=64,block=64,expr=0.5"])
+def test_synth_gen_kernel_bitwise_equal_to_plain(spec, batch):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     universe = synthetic.build_fl_synthetic(synthetic.parse_synth_spec(spec),
                                             device="cuda")
-    rng = np.random.default_rng(3)
-    parts = [ds.synth_vectors(rng.integers(0, len(ds), 40))[:5]
-             for ds in (universe["clients"][5], universe["public"], universe["veri"])]
+    rng = np.random.default_rng(batch)
+    sources = (universe["clients"][5], universe["public"], universe["veri"])
+    counts = (batch // 4, batch // 2, batch - batch // 4 - batch // 2)
+    parts = [ds.synth_vectors(rng.integers(0, len(ds), k))[:5]
+             for ds, k in zip(sources, counts)]
     vecs = [torch.from_numpy(np.concatenate(v)).cuda() for v in zip(*parts)]
     ds = universe["public"]
     args = (synth_gen.tf.prng_key(ds.seed), ds.image_size, ds.noise, ds.block,
@@ -228,5 +236,30 @@ def test_synth_gen_kernel_bitwise_equal_to_plain(spec):
     want = synth_gen.synth_generate_plain(*vecs, *args)
     torch.cuda.synchronize()
     assert synth_gen.synth_gen_launches == before + 1
-    assert got.shape == (120, ds.image_size, ds.image_size, 3)
+    assert got.shape == (batch, ds.image_size, ds.image_size, 3)
     assert int((got != want).sum()) == 0
+
+
+@pytest.mark.cuda
+def test_synth_gen_kernel_combined_batch_bitwise_equal_to_plain():
+    """A mixed local + public training batch of 256, drawn as the training
+    step draws it (``CombinedDataset.device_batch``, one launch), equals the
+    same batch of the same universe built on the CPU (the plain version)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    spec = synthetic.parse_synth_spec("synth:expr=0.5")
+    combined = []
+    for device in ("cuda", "cpu"):
+        universe = synthetic.build_fl_synthetic(spec, device=device)
+        public = universe["public"].subset(np.arange(0, 420_000, 64))  # ~6,500 mined
+        combined.append(CombinedDataset(universe["clients"][3], public))
+    pos = np.random.default_rng(4).permutation(len(combined[0]))[:256]
+    assert 64 < int((pos < combined[0].local_len).sum()) < 192
+    before = synth_gen.synth_gen_launches
+    got, labels = combined[0].device_batch(pos)
+    want, want_labels = combined[1].device_batch(pos)
+    torch.cuda.synchronize()
+    assert synth_gen.synth_gen_launches == before + 1
+    assert got.shape == (256, 112, 112, 3)
+    assert int((got.cpu() != want).sum()) == 0
+    np.testing.assert_array_equal(labels, want_labels)
