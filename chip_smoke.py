@@ -119,8 +119,37 @@ Phases, in order (any failure raises and the script exits non-zero):
    by this script (the first sampled client), no resume state and no
    per-round client exports (--round_ckpt_every 0 --client_ckpt_every 0).
 
+9. pretrain — the pretraining CLI (``fedfr_tpu_torch.pretrain``) in
+   process on the card at full width: sphere64 / E=512 / bf16 trunk /
+   batch 512, every one of the synth: defaults' 6,000 public IDs in the
+   FC, on ``synth:public_imgs=61440`` (120 steps an epoch).  Three runs,
+   launch counts set to 0 before and read after: 2 epochs at --sample_rate
+   1.0 --save_every 1, then --resume --num_epoch 3 ("resumed pretraining
+   at epoch 2", one epoch), then 1 epoch at --sample_rate 0.1 (600 sampled
+   classes) into a second directory.  Checks finite losses, fc.pth of
+   (6000, 512), labels of one per public image, the resume state, one
+   synth_gen launch per batch; then the training CLI's setup on the same
+   universe with --pretrained_root set to the output logs its three
+   "loaded pretrained ..." lines (no round).  Prints both losses' step ms
+   and samples/s (CUDA events over a steady window), the epoch and save
+   seconds and the peak memory.
+10. ijbc — writes a synthetic IJB-C root at the protocol's counts (23,124
+   templates: 3,531 gallery subjects over G1/G2 and 19,593 probe
+   templates; 15,658,489 1:1 pairs) with images from the synth: universe
+   at a held-out identity range straight into the aligned-image cache,
+   then the IJB-C CLIs in process, launch counts set to 0 before the write
+   and read after: ``ijbc_all --job both --engine device`` on phase 8's
+   final global export twice (bitwise-equal scores), the host engine on
+   the same image features through --load_feature (within 1e-5 of the
+   device's scores), and ``ijbc_conti --job 1:1`` over phase 4's
+   ``backbone_0.pth`` and ``backbone_1.pth`` (the cache reused).  Checks
+   the pair and template counts, the 6-entry 1:1 tables, top1/top5/top10
+   and finite values; prints each stage's seconds (root write, embed with
+   its images/s, aggregation, the 15.66 M pairs' scoring, 1:n) and the
+   peak memory.
+
 The line before the last is a JSON object with every hand-written kernel
-(its ``launches`` summed over phases 4-8, and by phase, 7a-7d apart); the
+(its ``launches`` summed over phases 4-10, and by phase, 7a-7d apart); the
 last line is the device record.  Widths are the reference's (sphere64 and iresnet100, E=512,
 112x112, batch 256); counts are cut:
   * (phases 4-7; phase 8 runs the reference's data, cut as listed there)
@@ -134,7 +163,13 @@ last line is the device record.  Widths are the reference's (sphere64 and iresne
     local_gallery: the 8 train images of each ID;
   * agedb_30.bin: 1,200 pairs (AgeDB-30: 6,000);
   * random weights from seed 100 (reference: pretrained), for iresnet100
-    written as the pretrained root.
+    written as the pretrained root;
+  * (phase 9) the public set cut from 420,671 to 61,440 images (all 6,000
+    IDs kept, ~10 images each); 2 + 1 epochs and 1 sampled epoch
+    (reference: 16 epochs); the CLI's setup, no round;
+  * (phase 10) the images cut from the protocol's 469,375 to 100,000
+    (every template keeps at least one; ~3.8 GB of cache); the templates,
+    pairs and 1:n lists at the protocol's counts.
 """
 
 from __future__ import annotations
@@ -159,14 +194,20 @@ import fedfr_tpu_torch.ops.max_sim as max_sim_mod
 import fedfr_tpu_torch.ops.roc_hist as roc_hist_mod
 import fedfr_tpu_torch.ops.roc_histogram as roc_histogram_mod
 import fedfr_tpu_torch.ops.synth_gen as synth_gen_mod
+from fedfr_tpu_torch import ijbc_all, ijbc_conti
 from fedfr_tpu_torch import local_all as local_all_cli
+from fedfr_tpu_torch import pretrain as pretrain_cli
 from fedfr_tpu_torch import train as train_cli
 from fedfr_tpu_torch.data import codec, synthetic, write_split
 from fedfr_tpu_torch.data.pipeline import DevicePrefetcher
+from fedfr_tpu_torch.evalsuite import ijbc
+from fedfr_tpu_torch.federated.state import normalize_images
 from fedfr_tpu_torch.federated.trainer import branch_step_for, init_client_state
 from fedfr_tpu_torch.models import build_backbone
 from fedfr_tpu_torch.ops._build import build_kernels, build_seconds, ptxas_info
 from fedfr_tpu_torch.ops.roc_histogram import tpr_at_fpr_table
+from fedfr_tpu_torch.ops.threefry import prng_key
+from fedfr_tpu_torch.parallel.partial_fc import num_sampled
 from fedfr_tpu_torch.utils.checkpoint import RoundCheckpointer
 from fedfr_tpu_torch.utils.profiling import TRACE_FILE
 
@@ -213,6 +254,10 @@ KERNEL_COUNTERS = {"max_sim": (max_sim_mod, "max_sim_launches"),
 # only within 2^-7 of it.
 MINING_BF16_TOL = 1e-5
 MINING_FP32_TOL = 2.0 ** -7
+# IJB-C pair scores: the device engine sums in fp32 in segment order, the
+# host engine in f64 then rounds; at E=512 with unit-norm templates the
+# fp32 sums differ by a few ulps of 1 (2^-24 each)
+IJBC_HOST_TOL = 1e-5
 THRESHOLD = 0.4            # run.sh's hn_threshold
 TPR_TOL = 0.01             # TPR table entries (percent, 2 decimals)
 
@@ -875,6 +920,128 @@ def write_client_fc_cache(pre: str, rows: int, embedding: int, seed: int) -> Non
     n = torch.randn(rows, embedding, generator=gen)
     fc = u / u.norm() + 0.9 * n / n.norm(dim=1, keepdim=True)
     torch.save(fc, os.path.join(pre, "preCos_init_AN.pth"))
+
+
+# the synthetic IJB-C subjects' template identities: a held-out range, apart
+# from the FL identities (< clients x ids), the public ones (2^20 +), the expr
+# distractors ([2^26, 2^30)) and the nuisance keys (2^30 +); the JAX
+# package's experiments/posttrain_eval_tpu.py draws the same
+IJBC_GID_OFFSET = 1 << 21
+IJBC_DATASET_SEED = 700_001
+# the IJB-C 1:1 and 1:n protocol's counts (the reference meta files')
+IJBC_IMAGES, IJBC_SUBJECTS = 469_375, 3_531
+IJBC_PROBE_TEMPLATES, IJBC_PAIRS = 19_593, 15_658_489
+
+
+def int_lines(columns, chunk: int = 1 << 21) -> bytes:
+    """Rows of non-negative integer columns as text, one row a line, the
+    columns joined by a space (what pandas' ``to_csv(sep=" ")`` writes),
+    built in chunks of rows from per-column digit tables: no Python loop
+    over the rows."""
+    n = len(columns[0])
+    tables = []
+    for c in columns:
+        vmax = int(np.max(c)) if n else 0
+        width = len(str(vmax))
+        v = np.arange(vmax + 1, dtype=np.int64)
+        p10 = 10 ** np.arange(width - 1, -1, -1, dtype=np.int64)
+        digits = ((v[:, None] // p10) % 10 + 48).astype(np.uint8)
+        ndig = np.ones(vmax + 1, np.int64)
+        for k in range(1, width):
+            ndig += v >= 10 ** k
+        tables.append((digits, np.arange(width)[None, :] >= (width - ndig)[:, None]))
+    out = []
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        parts, keep = [], []
+        for j, (c, (digits, lead)) in enumerate(zip(columns, tables)):
+            v = np.asarray(c[s:e])
+            parts += [digits[v], np.full((e - s, 1), 10 if j == len(columns) - 1
+                                         else 32, np.uint8)]
+            keep += [lead[v], np.ones((e - s, 1), bool)]
+        out.append(np.concatenate(parts, 1)[np.concatenate(keep, 1)].tobytes())
+    return b"".join(out)
+
+
+def write_synth_ijbc_root(root: str, spec: str, *, n_subjects: int,
+                          n_probe_templates: int, n_images: int, n_pairs: int,
+                          seed: int = 100, batch: int = 512,
+                          device: str = "cuda") -> dict:
+    """An IJB-C-shaped protocol root that ``evalsuite/ijbc.py::run_ijbc``
+    reads as it is: the port of the JAX package's ``build_synth_ijbc_root``
+    (experiments/posttrain_eval_tpu.py:57-204), the same files from the
+    same numpy streams (its rebuild marker left out).
+
+    Each subject has one gallery template (G1 and G2 alternate, as the
+    protocol splits its subjects over two galleries) and
+    ~n_probe_templates / n_subjects probe templates; every template has at
+    least one image, the rest spread nearly evenly; medias group up to 4
+    images of a template.  Genuine pairs: every probe template against its
+    subject's gallery template; impostors: a uniform probe against another
+    subject's gallery.  The images are generated by ``SyntheticFaceDataset``
+    (one ``synth_gen`` launch per ``batch`` on the card) from the universe
+    of ``spec`` at a held-out identity range and written straight into the
+    aligned-image cache ``IJBC_imgs.npy``.  Returns the seconds of the meta
+    files and of the images."""
+    meta = os.path.join(root, "meta", "IJBC_meta")
+    os.makedirs(meta, exist_ok=True)
+    rng = np.random.default_rng(seed + 11)
+    t0 = time.perf_counter()
+    n_templates = n_subjects + n_probe_templates
+    t_subject = np.empty(n_templates, np.int64)
+    t_subject[:n_subjects] = np.arange(n_subjects)  # the gallery templates
+    t_subject[n_subjects:] = np.arange(n_probe_templates) % n_subjects
+    per_t = np.full(n_templates, n_images // n_templates, np.int64)
+    per_t[: n_images - int(per_t.sum())] += 1
+    templates = np.repeat(np.arange(n_templates), per_t)
+    subjects = t_subject[templates]
+    pos_in_t = np.arange(n_images) - np.repeat(np.cumsum(per_t) - per_t, per_t)
+    medias = templates * 1000 + pos_in_t // 4
+    with open(os.path.join(meta, "ijbc_face_tid_mid.txt"), "w") as f:
+        f.writelines(f"img_{i}.jpg {templates[i]} {medias[i]}\n" for i in range(n_images))
+    # canonical landmarks and faceness ~ U(0.9, 1.0) (features are weighted
+    # by it); the images are never aligned from loose crops here
+    faceness = rng.uniform(0.9, 1.0, n_images)
+    with open(os.path.join(meta, "ijbc_name_5pts_score.txt"), "w") as f:
+        f.writelines(f"img_{i}.jpg 45 60 85 60 65 80 50 100 80 100 {faceness[i]:.4f}\n"
+                     for i in range(n_images))
+    gallery_t = np.arange(n_subjects)
+    probe_t = np.arange(n_subjects, n_templates)
+    imp_p = probe_t[rng.integers(0, n_probe_templates, n_pairs - n_probe_templates)]
+    imp_g = rng.integers(0, n_subjects, n_pairs - n_probe_templates)
+    # an impostor's gallery: shifted away from the probe's own subject
+    imp_g = (t_subject[imp_p] + 1 + (imp_g % (n_subjects - 1))) % n_subjects
+    label = np.zeros(n_pairs, np.int64)
+    label[:n_probe_templates] = 1
+    with open(os.path.join(meta, "ijbc_template_pair_label.txt"), "wb") as f:
+        f.write(int_lines([np.concatenate([probe_t, imp_p]),
+                           np.concatenate([t_subject[probe_t], imp_g]), label]))
+    for name, rows in (("G1", gallery_t[0::2]), ("G2", gallery_t[1::2]),
+                       ("probe_mixed", probe_t)):
+        path = os.path.join(meta, "ijbc_1N_%s.csv" % (
+            name if name == "probe_mixed" else "gallery_" + name))
+        with open(path, "w") as f:
+            f.write("TEMPLATE_ID,SUBJECT_ID\n")
+            f.writelines(f"{t},{t_subject[t]}\n" for t in rows)
+    meta_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    sp = synthetic.parse_synth_spec(spec)
+    ds = synthetic.SyntheticFaceDataset(
+        subjects.astype(np.int32),
+        (IJBC_GID_OFFSET + np.arange(n_subjects)).astype(np.int32),
+        seed=sp["seed"], dataset_seed=IJBC_DATASET_SEED,
+        image_size=sp["image_size"], noise=sp["noise"], block=sp["block"],
+        expr=sp["expr"], shift_div=sp["shift_div"], device=device)
+    size = sp["image_size"]
+    out = np.lib.format.open_memmap(os.path.join(root, "IJBC_imgs.npy"), mode="w+",
+                                    dtype=np.uint8, shape=(n_images, size, size, 3))
+    for s in range(0, n_images, batch):
+        e = min(s + batch, n_images)
+        out[s:e] = ds.device_batch(np.arange(s, e))[0].cpu().numpy()
+    out.flush()
+    del out
+    return {"meta_s": meta_s, "images_s": time.perf_counter() - t0}
 
 
 def pretrained_args(root: str, n_clients: int, ids: int, pre: str,
@@ -1551,6 +1718,322 @@ def phase_reference(argv: list) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 9
+
+# the synth: universe at its defaults with the public set cut to 61,440
+# images (~10 an ID over all 6,000 IDs): 120 steps of 512 an epoch
+PRETRAIN_SPEC = "synth:public_imgs=61440"
+LOSS_LINE_RE = re.compile(r"Speed (\S+) samples/sec\s+Loss (\S+)\s+Epoch: (\d+)")
+
+
+def pretrain_argv(data_dir: str, out: str, device: str = "cuda",
+                  network: str = "sphnet", embedding: int = 512,
+                  image_size: int = 112, batch: int = 512) -> list:
+    """The pretraining CLI's argv for phase 9: the JAX CLI's defaults (lr
+    0.05 with steps at 6 and 14, scale 64, margin 0.4), bf16 trunk."""
+    return ["--data_dir", data_dir, "--output_dir", out, "--network", network,
+            "--embedding_size", str(embedding), "--image_size", str(image_size),
+            "--batch_size", str(batch), "--log_every", "20", "--device", device]
+
+
+def with_flag(argv: list, flag: str, value: str) -> list:
+    """``argv`` with ``flag``'s value replaced (appended if absent)."""
+    argv = list(argv)
+    if flag in argv:
+        argv[argv.index(flag) + 1] = value
+        return argv
+    return argv + [flag, value]
+
+
+def time_pretrain_steps(args, dataset, u8: torch.Tensor, labels: torch.Tensor,
+                        iters: int = 10) -> dict:
+    """The pretraining step (full and sampled Partial FC) on one batch
+    (``u8``, ``labels``) of ``dataset`` from the CLI's initial weights: ms
+    per step and samples/s, CUDA events over ``iters`` steps back to back,
+    three runs, after two warm-up steps (host clock on the CPU)."""
+    dev = dataset.device
+    out = {}
+    for name, rate in (("full", 1.0), ("sampled", 0.1)):
+        backbone, weight, num_valid, opt, wopt = pretrain_cli.training_state(
+            args, dataset.num_classes, dev)
+        num_sample = num_sampled(rate, weight.shape[0]) if rate < 1.0 else None
+        step = pretrain_cli.make_train_step(args, num_valid, num_sample)
+        key = pretrain_cli.step_key(prng_key(args.seed + 7), 0, 0)
+
+        def one():
+            return step(backbone, weight, opt, wopt, u8, labels, args.lr, key)
+
+        loss = [float(one()) for _ in range(2)][-1]
+        if dev.type == "cuda":
+            ms = cuda_ms(one, 3, f"pretrain {name} step x {iters}", batch=iters)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                one()
+            ms = (time.perf_counter() - t0) * 1e3 / iters
+        out[name] = {"ms_per_step": ms, "samples_per_s": args.batch_size / ms * 1e3,
+                     "loss": loss, "num_sample": num_sample}
+        del backbone, weight, opt, wopt
+    return out
+
+
+def feature_norms(args, num_classes: int, root: str, u8: torch.Tensor) -> dict:
+    """The l2 norms (in fp64) of the features that ``root``'s backbone.pth
+    gives the batch ``u8`` in eval mode: median, max, the rows with a
+    non-finite value and the rows whose squared norm overflows fp32, where
+    ``x / ||x||`` is 0 and the loss gets no gradient."""
+    backbone, _ = pretrain_cli.initial_state(args, num_classes)
+    backbone.load_state_dict(torch.load(os.path.join(root, "backbone.pth"),
+                                        map_location="cpu"))
+    backbone = backbone.to(u8.device).eval()
+    with torch.no_grad():
+        f = backbone(normalize_images(u8)).double()
+    norms = torch.linalg.vector_norm(f, dim=1)
+    return {"median": float(norms.median()), "max": float(norms.max()),
+            "nonfinite_rows": int((~torch.isfinite(f)).any(1).sum()),
+            "fp32_overflow_rows": int((norms > math.sqrt(torch.finfo(torch.float32).max)).sum())}
+
+
+def phase_pretrain(argv: list, setup_argv: list) -> dict:
+    """Phase 9: the pretraining CLI (``fedfr_tpu_torch.pretrain``) in
+    process, launch counts set to 0 before its runs and read after: 2
+    epochs of the full softmax saving each epoch, ``--resume --num_epoch
+    3`` (one epoch, "resumed pretraining at epoch 2"), then 1 epoch at
+    ``--sample_rate 0.1`` into a second directory.  Checks finite losses,
+    the three artefacts (``fc.pth`` one row per public ID, the labels one
+    per public image) and the resume state, one ``synth_gen`` launch per
+    batch; then the training CLI's setup on the same universe with
+    ``--pretrained_root`` set to the output logs its three "loaded
+    pretrained ..." lines (no round).  Then both losses' step times."""
+    out = argv[argv.index("--output_dir") + 1]
+    on_card = argv[argv.index("--device") + 1] == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    runs = [("full", argv + ["--num_epoch", "2", "--sample_rate", "1.0",
+                             "--save_every", "1"]),
+            ("resumed", argv + ["--num_epoch", "3", "--resume"]),
+            ("sampled", with_flag(argv, "--output_dir", out + "_sampled")
+             + ["--num_epoch", "1", "--sample_rate", "0.1"])]
+    zero_launches()
+    figures, steps = {}, 0
+    for name, run_argv in runs:
+        t0 = time.perf_counter()
+        rec = pretrain_cli.main(pretrain_cli.build_parser().parse_args(run_argv))
+        sync()
+        rec["seconds"] = time.perf_counter() - t0
+        figures[name] = rec
+        steps += len(rec["epochs"]) * rec["steps_per_epoch"]
+        log("pretrain", run=name, seconds=f"{rec['seconds']:.2f}", epochs=rec["epochs"],
+            steps_per_epoch=rec["steps_per_epoch"], epoch_s=rec["epoch_s"],
+            save_s=rec["save_s"], lr=rec["lr"], num_sample=rec["num_sample"],
+            losses=rec["losses"])
+        losses = [v for _, v in rec["losses"]]
+        if not losses or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"pretrain {name}: losses {rec['losses']}")
+    launches = read_launches()
+    peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.2f}" if on_card
+            else "not measured")
+    if [figures[k]["epochs"] for k in ("full", "resumed", "sampled")] != [[0, 1], [2], [0]]:
+        raise AssertionError("pretrain epochs: " + str({k: v["epochs"] for k, v in figures.items()}))
+    with open(os.path.join(out, "pretrain.log")) as f:
+        text = f.read()
+    if "resumed pretraining at epoch 2" not in text:
+        raise AssertionError("pretrain.log lacks 'resumed pretraining at epoch 2'")
+    args = pretrain_cli.build_parser().parse_args(argv)
+    dataset = pretrain_cli.public_dataset(args, torch.device(args.device))
+    fc = torch.load(os.path.join(out, "fc.pth"))
+    labels = torch.load(os.path.join(out, "preCos_pretrain_labels.pth"))
+    state = torch.load(os.path.join(out, pretrain_cli.STATE_FILE), map_location="cpu")
+    want_fc = (dataset.num_classes, args.embedding_size)
+    if (tuple(fc.shape) != want_fc or len(labels) != len(dataset) or state["epoch"] != 2
+            or not torch.isfinite(fc).all()):
+        raise AssertionError(f"artefacts: fc {tuple(fc.shape)} (want {want_fc}), "
+                             f"{len(labels)} labels of {len(dataset)}, state epoch "
+                             f"{state['epoch']}")
+    expect = {"max_sim": 0, "roc_hist": 0, "synth_gen": steps}
+    log("pretrain", launches=launches, expected=expect, fc_shape=list(fc.shape),
+        labels=len(labels), peak_memory_gib=peak)
+    if on_card and launches != expect:
+        raise AssertionError(f"pretrain launches {launches}, expected {expect}")
+
+    # the training CLI reads the root (its setup only)
+    setup_argv = with_flag(setup_argv, "--pretrained_root", out)
+    t0 = time.perf_counter()
+    t = train_cli.setup(train_cli.build_parser().parse_args(setup_argv))
+    setup_s = time.perf_counter() - t0
+    with open(os.path.join(t.cfg.runtime.output_dir, "training.log")) as f:
+        text = f.read()
+    want = ["loaded pretrained backbone from " + os.path.join(out, "backbone.pth"),
+            f"loaded pretrain labels ({len(dataset)},)",
+            f"loaded pretrained perfect FC ({want_fc[0]}, {want_fc[1]})"]
+    missing = [w for w in want if w not in text]
+    if missing:
+        raise AssertionError(f"the training CLI's setup did not log {missing}")
+    log("pretrain", setup_s=f"{setup_s:.2f}", loaded=want)
+    del t
+    u8, batch_labels = dataset.device_batch(np.arange(args.batch_size))
+    norms = {name: feature_norms(args, dataset.num_classes, root, u8)
+             for name, root in (("full", out), ("sampled", out + "_sampled"))}
+    log("pretrain", feature_norms=json.dumps(norms))
+    timed = time_pretrain_steps(args, dataset, u8,
+                                torch.from_numpy(batch_labels).to(dataset.device))
+    log("pretrain", figures=json.dumps({
+        "steps": timed, "feature_norms": norms, "peak_memory_gib": peak,
+        "setup_s": setup_s,
+        "runs": {k: {f: v[f] for f in ("seconds", "epoch_s", "save_s", "losses")}
+                 for k, v in figures.items()}}))
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------- phase 10
+
+IJBC_IMAGES_CUT = 100_000  # of the protocol's 469,375 (~3.8 GB of cache)
+
+
+def time_pair_scoring(feats: torch.Tensor, ijbc_root: str, on_card: bool) -> dict:
+    """The 1:1 scoring loop alone (``ijbc.row_dot_scores``) on the card's
+    template matrix of ``feats``, the row indices already there: ms (CUDA
+    events, three runs; host clock on the CPU) beside its bound, by bytes:
+    the fp32 template matrix read once, two int32 indices and one fp32
+    score a pair.  The gathers read 2 x E x 4 bytes a pair, from L2 as far
+    as the matrix stays there."""
+    meta = os.path.join(ijbc_root, "meta", "IJBC_meta")
+    templates, medias = ijbc.read_template_media_list(
+        os.path.join(meta, "ijbc_face_tid_mid.txt"))
+    p1, p2, _ = ijbc.read_template_pair_list(
+        os.path.join(meta, "ijbc_template_pair_label.txt"))
+    tf, ut = ijbc.image_to_template_features_device(feats, templates, medias)
+    i1, i2 = (torch.from_numpy(i.astype(np.int32)).to(tf.device)
+              for i in ijbc.template_rows(ut, p1, p2))
+    n, e = len(p1), tf.shape[1]
+    tf_bytes = tf.numel() * tf.element_size()
+    if on_card:
+        ms = cuda_ms(lambda: ijbc.row_dot_scores(tf, i1, i2), 3, "ijbc pair scoring")
+    else:
+        t0 = time.perf_counter()
+        ijbc.row_dot_scores(tf, i1, i2)
+        ms = (time.perf_counter() - t0) * 1e3
+    out = {"pairs": n, "templates": len(ut), "ms": ms,
+           "bound_ms": (tf_bytes + 3 * 4 * n) / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "template_matrix_mb": tf_bytes / 1e6,
+           "l2_mb": 50, "gathered_gb": 2 * n * e * 4 / 1e9}
+    log("ijbc", pair_scoring=json.dumps(out))
+    return out
+
+
+def _read_scores(result_dir: str) -> np.ndarray:
+    return np.load(os.path.join(result_dir, "ijbc-1:1", "ijbc.npy"))
+
+
+def phase_ijbc(ijbc_root: str, export: str, conti_dir: str, conti_epochs: list,
+               network: str = "sphnet", embedding: int = 512, batch: int = 512,
+               device: str = "cuda", spec: str = "synth:",
+               counts: tuple = (IJBC_SUBJECTS, IJBC_PROBE_TEMPLATES,
+                                IJBC_IMAGES_CUT, IJBC_PAIRS)) -> dict:
+    """Phase 10: writes the synthetic IJB-C root (``counts``: subjects,
+    probe templates, images, pairs), then the IJB-C CLIs in process, launch
+    counts set to 0 before the write and read after the last run:
+    ``ijbc_all --job both --engine device`` on ``export`` twice (bitwise
+    equal scores), the host engine on the same image features through
+    ``--load_feature`` (scores within IJBC_HOST_TOL of the device's), and
+    ``ijbc_conti --job 1:1`` over ``conti_epochs`` of ``conti_dir`` (the
+    cache reused).  Checks the pair and template counts, a 6-entry 1:1
+    table, the top1/top5/top10 ranks and finite values."""
+    n_subjects, n_probe, n_images, n_pairs = counts
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    write_s = write_synth_ijbc_root(ijbc_root, spec, n_subjects=n_subjects,
+                                    n_probe_templates=n_probe, n_images=n_images,
+                                    n_pairs=n_pairs, batch=batch, device=device)
+    write_s["total_s"] = time.perf_counter() - t0
+    log("ijbc", root=ijbc_root, images=n_images, protocol_images=IJBC_IMAGES,
+        templates=n_subjects + n_probe,
+        pairs=n_pairs, write=write_s)
+    base = ["--model-prefix", export, "--root-path", ijbc_root, "--network", network,
+            "--embedding_size", str(embedding), "--batch-size", str(batch),
+            "--job", "both", "--device", device]
+    runs = {}
+    for name, extra in (("device", ["--engine", "device"]),
+                        ("device_again", ["--engine", "device"])):
+        res_dir = os.path.join(ijbc_root, "results_" + name)
+        t0 = time.perf_counter()
+        runs[name] = ijbc_all.main(ijbc_all.build_parser().parse_args(
+            base + extra + ["--result-dir", res_dir]))
+        runs[name]["wall_s"] = time.perf_counter() - t0
+        runs[name]["scores"] = _read_scores(res_dir)
+    # the host engine on the same image features
+    model = ijbc_all.load_model(network, embedding, export, False, torch.device(device))
+    feats = ijbc.image_features(model, ijbc_root, batch, engine="device", device=device)
+    feat_path = os.path.join(ijbc_root, "image_features.npy")
+    np.save(feat_path, feats.cpu().numpy())
+    scoring = time_pair_scoring(feats, ijbc_root, on_card)
+    del model, feats
+    res_dir = os.path.join(ijbc_root, "results_host")
+    t0 = time.perf_counter()
+    runs["host"] = ijbc_all.main(ijbc_all.build_parser().parse_args(
+        base + ["--engine", "host", "--load_feature", feat_path, "--result-dir", res_dir]))
+    runs["host"]["wall_s"] = time.perf_counter() - t0
+    runs["host"]["scores"] = _read_scores(res_dir)
+    t0 = time.perf_counter()
+    conti = ijbc_conti.main(ijbc_conti.build_parser().parse_args([
+        "--ckpt_dir", conti_dir, "--root_path", ijbc_root, "--job", "1:1",
+        "--epoch", *[str(e) for e in conti_epochs], "--network", network,
+        "--embedding_size", str(embedding), "--batch_size", str(batch),
+        "--gpu", "0", "--device", device]))
+    conti_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.2f}" if on_card
+            else "not measured")
+
+    templates, _ = ijbc.read_template_media_list(
+        os.path.join(ijbc_root, "meta", "IJBC_meta", "ijbc_face_tid_mid.txt"))
+    dev_s, again_s, host_s = (runs[k]["scores"] for k in ("device", "device_again", "host"))
+    host_err = float(np.abs(dev_s.astype(np.float64) - host_s).max())
+    for name, r in runs.items():
+        log("ijbc", run=name, wall_s=f"{r['wall_s']:.2f}",
+            seconds=json.dumps({k: round(v, 4) for k, v in r["seconds"].items()}),
+            tpr_at_fpr=r["tpr_at_fpr"], rank=r["rank"], tpir_at_fpir=r["tpir_at_fpir"])
+    log("ijbc", conti_s=f"{conti_s:.2f}", conti_tables=[r["tpr_at_fpr"] for r in conti],
+        bitwise_equal=bool(np.array_equal(dev_s, again_s)), host_max_abs_err=host_err,
+        host_tol=IJBC_HOST_TOL, launches=launches, peak_memory_gib=peak)
+    if len(np.unique(templates)) != n_subjects + n_probe or len(dev_s) != n_pairs:
+        raise AssertionError(f"{len(np.unique(templates))} templates, {len(dev_s)} scores")
+    if not np.array_equal(dev_s, again_s):
+        raise AssertionError("two device runs gave different scores")
+    if not host_err <= IJBC_HOST_TOL:
+        raise AssertionError(f"device and host scores differ by {host_err}")
+    for r in list(runs.values()) + conti:
+        table = r["tpr_at_fpr"]
+        values = table + list(r.get("rank", {}).values()) + list(
+            r.get("tpir_at_fpir", {}).values())
+        if len(table) != 6 or not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"IJB-C tables {r}")
+    for r in runs.values():
+        if set(r["rank"]) != {"top1", "top5", "top10"}:
+            raise AssertionError(f"rank table {r['rank']}")
+    with open(os.path.join(conti_dir, "ijbc-1:1", "log.txt")) as f:
+        entries = f.read().count("Epoch ")
+    if entries != len(conti_epochs) or not all(np.isfinite(dev_s)):
+        raise AssertionError(f"ijbc_conti log has {entries} entries")
+    seconds = runs["device"]["seconds"]
+    log("ijbc", figures=json.dumps({
+        "write": write_s, "images": n_images, "pairs": n_pairs,
+        "embed_images_per_s": n_images / seconds["embed"],
+        "device": seconds, "host": runs["host"]["seconds"],
+        "host_max_abs_err": host_err, "pair_scoring": scoring, "conti_s": conti_s,
+        "peak_memory_gib": peak}))
+    expect = {"max_sim": 0, "roc_hist": 0, "synth_gen": -(-n_images // batch)}
+    if on_card and launches != expect:
+        raise AssertionError(f"ijbc launches {launches}, expected {expect}")
+    return launches
+
+
 def main() -> None:
     seconds = {}
 
@@ -1582,6 +2065,17 @@ def main() -> None:
         by_phase.update(timed("7_paths", phase_paths, root, n_clients=2, ids=100))
         by_phase["reference"] = timed("8_reference", phase_reference, reference_args(
             os.path.join(root, "val"), os.path.join(root, "run_reference")))
+        setup_argv = reference_args(os.path.join(root, "val"),
+                                    os.path.join(root, "run_from_pretrain"))
+        for flag in ("--rec_root", "--local_rec"):
+            setup_argv = with_flag(setup_argv, flag, PRETRAIN_SPEC)
+        by_phase["pretrain"] = timed(
+            "9_pretrain", phase_pretrain,
+            pretrain_argv(PRETRAIN_SPEC, os.path.join(root, "pretrain_synth")), setup_argv)
+        by_phase["ijbc"] = timed(
+            "10_ijbc", phase_ijbc, os.path.join(root, "ijbc"),
+            os.path.join(root, "run_reference", "backbone_0.pth"),
+            os.path.join(root, "run"), [0, 1])
     log("smoke", phase_seconds=json.dumps(seconds),
         total_s=round(sum(seconds.values()), 2))
     for record in (mining, roc, synth):

@@ -281,3 +281,37 @@ def test_chip_smoke_reference_phase_rehearsed_on_cpu(smoke_root, tmp_path, monke
     monkeypatch.setattr(chip_smoke, "REF_VERI", 360)
     monkeypatch.setattr(chip_smoke, "REF_TARGETS", 9)
     assert chip_smoke.phase_reference(argv) == NO_LAUNCHES
+
+
+def test_chip_smoke_pretrain_and_ijbc_phases_rehearsed_on_cpu(smoke_root, tmp_path):
+    """The smoke's phases 9 and 10 at toy size on the CPU: the pretraining
+    CLI's three runs (2 epochs, --resume to 3, a sampled epoch), the
+    artefact checks and the training CLI's setup from the root; then the
+    synthetic IJB-C root at miniature counts, ijbc_all twice on the device
+    engine (bitwise), the host engine through --load_feature, and
+    ijbc_conti over phase 4's two exports; no launch is counted here."""
+    spec = ("synth:imgs_min=5,imgs_max=7,public_ids=12,public_imgs=48,"
+            "veri_ids=6,veri_imgs=4")
+    argv = chip_smoke.pretrain_argv(spec, str(tmp_path / "pre"), device="cpu",
+                                    network="toy", embedding=16, image_size=IMG,
+                                    batch=8)
+    argv = chip_smoke.with_flag(argv, "--log_every", "2") + ["--num_workers", "2"]
+    setup = chip_smoke.reference_args(os.path.join(smoke_root, "val"),
+                                      str(tmp_path / "from_pre"))
+    for flag, value in (("--network", "toy"), ("--embedding_size", "16"),
+                        ("--image_size", str(IMG)), ("--com_batch_size", "8"),
+                        ("--eval_batch_size", "16"), ("--public_batch_size", "16"),
+                        ("--num_client", "2"), ("--num_ids", "6"),
+                        ("--rec_root", spec), ("--local_rec", spec),
+                        ("--num_workers", "2")):
+        setup = chip_smoke.with_flag(setup, flag, value)
+    assert chip_smoke.phase_pretrain(setup_argv=setup + ["--device", "cpu"],
+                                     argv=argv) == NO_LAUNCHES
+    assert os.path.exists(tmp_path / "pre_sampled" / "fc.pth")
+
+    run = str(tmp_path / "run")
+    train_cli.main(train_cli.build_parser().parse_args(_argv(smoke_root, run)))
+    assert chip_smoke.phase_ijbc(str(tmp_path / "ijbc"), os.path.join(run, "backbone_1.pth"),
+                                 run, [0, 1], network="toy", embedding=16, batch=32,
+                                 device="cpu", spec=f"synth:image_size={IMG},noise=5",
+                                 counts=(6, 18, 300, 600)) == NO_LAUNCHES

@@ -51,6 +51,72 @@ def test_source_imports_no_jax_and_no_fedfr_tpu(path):
     assert [n for n in names if _forbidden(n)] == []
 
 
+def _imports(tree):
+    """(module name, enclosing function or None) of every absolute import."""
+    found = []
+
+    def visit(node, func):
+        for child in ast.iter_child_nodes(node):
+            inner = (child.name if isinstance(child, (ast.FunctionDef,
+                                                      ast.AsyncFunctionDef))
+                     else func)
+            if isinstance(child, ast.Import):
+                found.extend((a.name, func) for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                found.append((child.module or "", func))
+            visit(child, inner)
+
+    visit(tree, None)
+    return found
+
+
+# imports of pandas, scikit-learn or cv2 that earlier slices keep on optional
+# paths the card never takes: the rec codec's guarded JPEG decoder (raw
+# payloads need none; PIL is its fallback), the .bin loader's resize of
+# images that are not 112x112 already, and PCA before the k-fold threshold
+# sweep (pca > 0; the reference's default is 0)
+OPTIONAL_IMPORTS = {
+    "fedfr_tpu_torch/data/codec.py": [("cv2", None)],
+    "fedfr_tpu_torch/evalsuite/verification.py": [("cv2", "_resize_short")],
+    "fedfr_tpu_torch/ops/kfold.py": [("sklearn", "calculate_roc")],
+}
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]))
+def test_source_imports_no_pandas_or_sklearn_and_cv2_only_in_align_face(path):
+    """The card's machine has neither pandas nor scikit-learn nor cv2: the
+    port reads the IJB-C meta files and draws the ROC in numpy, and imports
+    cv2 for IJB-C only inside ``align_face`` (aligning loose crops); the
+    earlier slices' optional imports are listed in OPTIONAL_IMPORTS."""
+    found = _imports(ast.parse((REPO / path).read_text(), filename=path))
+    got = [(m.split(".")[0], func) for m, func in found
+           if m.split(".")[0] in ("pandas", "sklearn", "cv2")]
+    want = {"fedfr_tpu_torch/evalsuite/align.py": [("cv2", "align_face")],
+            **OPTIONAL_IMPORTS}.get(path, [])
+    assert got == want
+
+
+@pytest.mark.parametrize("module", ["pretrain", "ijbc_all", "ijbc_conti"])
+def test_slice_9_entry_points_default_to_cuda_and_raise_without_it(module, monkeypatch,
+                                                                   tmp_path):
+    """``python -m fedfr_tpu_torch.{pretrain,ijbc_all,ijbc_conti}`` run on
+    ``cuda`` unless ``--device cpu``, and raise with no GPU before any
+    work."""
+    import importlib
+
+    cli = importlib.import_module(f"fedfr_tpu_torch.{module}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = {"pretrain": ["--data_dir", "synth:", "--output_dir", str(tmp_path)],
+            "ijbc_all": ["--root-path", str(tmp_path)],
+            "ijbc_conti": ["--ckpt_dir", str(tmp_path), "--epoch", "0"]}[module]
+    args = cli.build_parser().parse_args(argv)
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(args)
+    assert os.listdir(tmp_path) == []
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     """With no GPU and no device='cpu', Server and embed_dataset raise;
     nothing carries on on the CPU."""
