@@ -81,17 +81,17 @@ Phases, in order (any failure raises and the script exits non-zero):
 7. paths — the sequential round's other paths through the training CLI at
    sphere64 / E=512 / bf16 trunk / batch 256 on the round phase's data,
    each part's launch counts set to 0 before its rounds and read after:
-   7a  --cache_contrastive --spreadout, 2 rounds, the clients' FC rows from
+   7a  --cache_contrastive --spreadout, 1 round, the clients' FC rows from
        a pretrained root's FC cache (--pretrained_root, --init_fc) whose
        pairs lie above SpreadOut's margin: one mining launch
        per client per round, one ROC launch per candidate per round plus
        the baselines, finite losses, one cache build per local run, the
-       SpreadOut objective lower after than before in each round; then on
+       SpreadOut objective lower after than before; then on
        one batch of client 0's next local run the cached step against the
        recompute step from the same state and flip (MOON_TOL), and both
        forms timed (CUDA events, in turns) with the cache build's seconds.
-   7b  --resume --total_round 3 on 7a's output: the restored state bitwise
-       equal to 7a's last save, "resumed at round 2", one round, its client
+   7b  --resume --total_round 2 on 7a's output: the restored state bitwise
+       equal to 7a's last save, "resumed at round 1", one round, its client
        sample equal to a replay of sample_clients from the saved RNG state;
        again on a copy of 7a's round states with --round_ckpt_async
        --round_ckpt_bg_fetch --round_ckpt_keep 1, leaving one complete
@@ -147,10 +147,33 @@ Phases, in order (any failure raises and the script exits non-zero):
    and finite values; prints each stage's seconds (root write, embed with
    its images/s, aggregation, the 15.66 M pairs' scoring, 1:n) and the
    peak memory.
+11. lockstep — the lockstep round (``--lockstep 2``) through the training
+   CLI at sphere64 / E=512 / bf16 trunk / batch 256 on 3 clients x 100
+   IDs x 8 images written like phase 4's data (its own public set, veri
+   set and .bin), each part's launch counts set to 0 before its rounds and
+   read after:
+   11a  2 rounds, groups [c0, c1] and [c2 + a pad slot]: one mining launch
+        per real client per round (none for the pad), one ROC launch per
+        candidate per round plus the baselines, the "client-parallel
+        ... lockstep 2 (branch objective)" line, one "parallel group"
+        line per group and epoch, a loss line per round, a changed and
+        finite global model, local_log.txt and the exports as phase 4.
+   11b  --cache_contrastive --remat, 1 round: one cache build per client,
+        every residual block checkpointed.
+   11c  the plain objective (no --add_pretrained_data, --batch_size 64), 1
+        round: no mining launch, each client's FedAvg weight its own set.
+   11d  on one seeded batch of 256 per member: the K=2 lockstep step
+        against two sequential steps (sphere64, then iresnet100 with
+        --remat, BN statistics included) within LOCKSTEP_TOL_FACTOR x the
+        sequential step's distance from the same step in fp32; ms per
+        client-step and peak memory of the sequential step (K = 1) and of
+        the lockstep step at K = 2, 4 and 4 with --remat (CUDA events over
+        a steady window); one conv layer of each trunk stage for 2 clients
+        as separate convs, one grouped conv and the stacked conv leaf.
 
 The line before the last is a JSON object with every hand-written kernel
-(its ``launches`` summed over phases 4-10, and by phase, 7a-7d apart); the
-last line is the device record.  Widths are the reference's (sphere64 and iresnet100, E=512,
+(its ``launches`` summed over phases 4-11, and by phase, 7a-7d apart, 11a-11c
+together); the last line is the device record.  Widths are the reference's (sphere64 and iresnet100, E=512,
 112x112, batch 256); counts are cut:
   * (phases 4-7; phase 8 runs the reference's data, cut as listed there)
     2 clients x 100 IDs x 8 train images (reference: 40 clients x 100 IDs);
@@ -158,7 +181,7 @@ last line is the device record.  Widths are the reference's (sphere64 and iresne
   * (phases 4-7) 2 local epochs (phase 4: 1, so that the traced round 0
     stays small), then 4; 2 rounds (reference: 10 epochs, 20 rounds);
     the iresnet100 round: 2 local epochs, 1 round; phase 7: 2 local epochs
-    then 4, 2 rounds for 7a, 1 round for each other part;
+    then 4, 1 round for each part (7b's resumed round the second);
   * local_veri: 2 clients x 100 IDs x 10 images (reference: 4,000 IDs x 40);
     local_gallery: the 8 train images of each ID;
   * agedb_30.bin: 1,200 pairs (AgeDB-30: 6,000);
@@ -169,7 +192,9 @@ last line is the device record.  Widths are the reference's (sphere64 and iresne
     (reference: 16 epochs); the CLI's setup, no round;
   * (phase 10) the images cut from the protocol's 469,375 to 100,000
     (every template keeps at least one; ~3.8 GB of cache); the templates,
-    pairs and 1:n lists at the protocol's counts.
+    pairs and 1:n lists at the protocol's counts;
+  * (phase 11) 3 clients x 100 IDs x 8 images; 1 local epoch then 4, 2
+    rounds for 11a, 1 round for 11b and 11c.
 """
 
 from __future__ import annotations
@@ -202,11 +227,14 @@ from fedfr_tpu_torch.data import codec, synthetic, write_split
 from fedfr_tpu_torch.data.pipeline import DevicePrefetcher
 from fedfr_tpu_torch.evalsuite import ijbc
 from fedfr_tpu_torch.federated.state import normalize_images
-from fedfr_tpu_torch.federated.trainer import branch_step_for, init_client_state
-from fedfr_tpu_torch.models import build_backbone
+from fedfr_tpu_torch.federated.trainer import (branch_objective_kwargs, branch_step_for,
+                                               init_client_state)
+from fedfr_tpu_torch.models import BCEModule, build_backbone
 from fedfr_tpu_torch.ops._build import build_kernels, build_seconds, ptxas_info
 from fedfr_tpu_torch.ops.roc_histogram import tpr_at_fpr_table
 from fedfr_tpu_torch.ops.threefry import prng_key
+from fedfr_tpu_torch.parallel import client_parallel
+from fedfr_tpu_torch.parallel.fedavg import stack_trees
 from fedfr_tpu_torch.parallel.partial_fc import num_sampled
 from fedfr_tpu_torch.utils.checkpoint import RoundCheckpointer
 from fedfr_tpu_torch.utils.profiling import TRACE_FILE
@@ -1311,10 +1339,11 @@ CACHE_RE = re.compile(r"contrastive caches of (\d+) imgs built in (\S+) s")
 RESTORE_RE = re.compile(r"resumed at round (\d+) \(restore (\S+) s\)")
 
 
-def drive(argv: list, on_setup=None):
+def drive(argv: list, on_setup=None, tag: str = "paths"):
     """The training CLI's setup, rounds and finish (as its main runs them),
     with both kernels' launch counts set to 0 just before the rounds and
-    read just after; ``on_setup(run)`` runs between setup and the rounds.
+    read just after; ``on_setup(run)`` runs between setup and the rounds;
+    the per-round lines are logged under ``tag``.
     Returns (run, the rounds' records, launches, the log's text)."""
     run = train_cli.setup(train_cli.build_parser().parse_args(argv))
     if on_setup is not None:
@@ -1331,6 +1360,7 @@ def drive(argv: list, on_setup=None):
         rec["losses"] = [c.last_loss for c in clients]
         rec["mined"] = [c.mined for c in clients]
         rec["dataset_sizes"] = [c.dataset_size for c in clients]
+        rec["local_epochs"] = run.server.local_epoch
         history.append(rec)
         if not all(math.isfinite(x) for x in rec["losses"] + [rec["avg_loss"]]):
             raise AssertionError(f"non-finite loss in round {rec['round']}: {rec['losses']}")
@@ -1341,13 +1371,13 @@ def drive(argv: list, on_setup=None):
     with open(os.path.join(run.cfg.runtime.output_dir, "training.log")) as f:
         text = f.read()
     for rec in history:
-        log("paths", out=os.path.basename(run.cfg.runtime.output_dir),
+        log(tag, out=os.path.basename(run.cfg.runtime.output_dir),
             round=rec["round"], seconds=f"{rec['seconds']:.2f}",
             train_s=f"{rec['train_round_s'] - rec['local_eval_s']:.3f}",
             local_eval_s=f"{rec['local_eval_s']:.3f}", bin_eval_s=f"{rec['bin_eval_s']:.3f}",
             ckpt_save_s=rec["ckpt_save_s"], losses=rec["losses"], mined=rec["mined"],
             dataset_sizes=rec["dataset_sizes"], acc=rec["acc"])
-    log("paths", out=os.path.basename(run.cfg.runtime.output_dir), launches=launches,
+    log(tag, out=os.path.basename(run.cfg.runtime.output_dir), launches=launches,
         finish_s=f"{finish_s:.3f}")
     return run, history, launches, text
 
@@ -1463,7 +1493,7 @@ def _saved_tensors(state: dict) -> dict:
 
 
 def resume_part(argv: list, saved: dict, meta: dict) -> dict:
-    """--resume --total_round 3 on a copy of 7a's round states: the restored
+    """--resume --total_round 2 on a copy of 7a's round states: the restored
     state bitwise equal to the saved one, one round, and that round's client
     sample equal to what ``sample_clients`` draws from the saved RNG state."""
     checked = {}
@@ -1523,18 +1553,18 @@ def phase_paths(root: str, n_clients: int, ids: int, **round_kw) -> dict:
                    "--init_fc"]
     out_a = os.path.join(root, "run_paths")
     run, history, launches, text = drive(argv_for(
-        "run_paths", 2, paths_flags + ["--round_ckpt_every", "1"]))
+        "run_paths", 1, paths_flags + ["--round_ckpt_every", "1"]))
     server = run.server
     expect_launches(run, launches, {
-        "max_sim": n_clients * 2, "roc_hist": len(server.local_candidates) * 3}, "7a")
+        "max_sim": n_clients, "roc_hist": len(server.local_candidates) * 2}, "7a")
     spread = [(int(m.group(1)), float(m.group(3)), float(m.group(4)))
               for m in SPREADOUT_RE.finditer(text)]
-    if [r for r, _, _ in spread] != [0, 1] or not all(
+    if [r for r, _, _ in spread] != [0] or not all(
             0 < after < before for _, before, after in spread):
         raise AssertionError(f"SpreadOut did not lower its objective each round: {spread}")
     caches = [(int(m.group(1)), float(m.group(2))) for m in CACHE_RE.finditer(text)]
-    if len(caches) != n_clients * 2:
-        raise AssertionError(f"{len(caches)} cache builds logged, expected {n_clients * 2}")
+    if len(caches) != n_clients:
+        raise AssertionError(f"{len(caches)} cache builds logged, expected {n_clients}")
     log("paths", part="7a", spreadout=spread, cache_builds=caches)
     by_part["7a_cached_spreadout"] = launches
     figures["7a"] = {"round_s": [h["seconds"] for h in history],
@@ -1543,19 +1573,19 @@ def phase_paths(root: str, n_clients: int, ids: int, **round_kw) -> dict:
                      "steps": compare_step_forms(run)}
     del run, server
 
-    # 7b: resume at round 2 of 7a's states, then again on a copy taken first,
+    # 7b: resume at round 1 of 7a's states, then again on a copy taken first,
     # with the async writer, the background fetch and one state kept
     ckpt = RoundCheckpointer(os.path.join(out_a, "rounds"))
     saved, meta = ckpt.load(ckpt.latest())
     out_copy = os.path.join(root, "run_paths_async")
     shutil.copytree(os.path.join(out_a, "rounds"), os.path.join(out_copy, "rounds"))
-    first = resume_part(argv_for("run_paths", 3, paths_flags + ["--resume"]),
+    first = resume_part(argv_for("run_paths", 2, paths_flags + ["--resume"]),
                         saved, meta)
-    second = resume_part(argv_for("run_paths_async", 3, paths_flags + [
+    second = resume_part(argv_for("run_paths_async", 2, paths_flags + [
         "--resume", "--round_ckpt_async", "--round_ckpt_bg_fetch",
         "--round_ckpt_keep", "1"]), saved, meta)
     left = sorted(os.listdir(os.path.join(out_copy, "rounds")))
-    if left != ["round_3.meta.json", "round_3.pt"]:
+    if left != ["round_2.meta.json", "round_2.pt"]:
         raise AssertionError(f"--round_ckpt_keep 1 left {left}")
     by_part["7b_resume"] = {k: first["launches"][k] + second["launches"][k]
                             for k in first["launches"]}
@@ -2034,6 +2064,380 @@ def phase_ijbc(ijbc_root: str, export: str, conti_dir: str, conti_epochs: list,
     return launches
 
 
+# ---------------------------------------------------------------- phase 11
+
+LOCKSTEP_RE = re.compile(r"client-parallel training over 1 devices x lockstep (\d+) "
+                         r"\((branch|plain) objective\)")
+GROUP_RE = re.compile(r"parallel group \[([0-9, ]+)\] epoch (\d+)/(\d+) done")
+PARALLEL_LOSS_RE = re.compile(r"round (\d+) \(parallel( plain)?\) avg client loss (\S+)")
+# 11d holds the lockstep step to the sequential step, both with the bf16
+# trunk.  They differ only in the order of the trunk's sums (the stacked
+# convs run as grouped convs, the stacked BN leaves sum in their own
+# order), and each carries the bf16 trunk's rounding against the same step
+# in fp32, so |lockstep - sequential| <= |lockstep - fp32| + |sequential -
+# fp32|.  Allowing the lockstep's rounding twice the sequential one's, the
+# bound is LOCKSTEP_TOL_FACTOR x the sequential step's own distance from
+# fp32 (measured in the same run), per loss term, over the updated weights
+# (one max over every tensor) and over the BN running statistics.  A net
+# without a bf16 trunk (the toy net) has no such distance; its bound is
+# LOCKSTEP_FP32_TOL.
+LOCKSTEP_TOL_FACTOR = 3.0
+LOCKSTEP_FP32_TOL = 1e-5
+
+
+def _set_bf16(nets, on: bool) -> None:
+    for net in nets:
+        if hasattr(net, "bf16"):
+            net.bf16 = on
+
+
+def step_members(cfg, network: str, k: int, image_size: int, batch: int,
+                 num_public: int, device: torch.device, seed: int) -> dict:
+    """k seeded members of one lockstep group on ``device``: a batch of
+    ``batch`` u8 images each with labels over the local and public classes,
+    flips, [local ; global] FC rows, BCE weights and a last-round model of
+    their own; one global model, and the work modules of the sequential
+    step (``network`` with the bf16 trunk)."""
+    E, num_local = cfg.model.embedding_size, 100
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def net(s, **kw):
+        return build_backbone(network, E, image_size=image_size,
+                              generator=torch.Generator().manual_seed(s), **kw).to(device)
+
+    bce_kw = dict(converter_layers=cfg.model.converter_layers, m=cfg.loss.bce_margin,
+                  r=cfg.loss.bce_scale, t=cfg.loss.bce_t)
+    return {
+        "work": net(seed), "global": net(seed + 1).eval().requires_grad_(False),
+        "last": net(seed + 2).eval().requires_grad_(False),
+        "lasts": [net(seed + 3 + i).state_dict() for i in range(k)],
+        "bce": BCEModule(E, num_local, **bce_kw).to(device),
+        "bces": [BCEModule(E, num_local, generator=torch.Generator().manual_seed(seed + 9 + i),
+                           **bce_kw).to(device).state_dict() for i in range(k)],
+        "fcs": 0.01 * torch.randn(k, num_local + num_public, E, generator=gen, device=device),
+        "imgs": torch.randint(0, 256, (k, batch, image_size, image_size, 3), generator=gen,
+                              device=device, dtype=torch.uint8),
+        "labels": torch.randint(0, num_local + num_public, (k, batch), generator=gen,
+                                device=device),
+        "valid": torch.ones(k, batch, dtype=torch.bool, device=device),
+        "flips": torch.rand(k, batch, generator=gen, device=device) < 0.5,
+        "num_local": num_local,
+    }
+
+
+def sequential_steps(cfg, m: dict, bf16: bool = True) -> list:
+    """Each member's sequential branch step from the global model (the
+    work modules loaded as ``Client.prepare_local_run`` loads them), with
+    the trunk in bf16 or fp32 (the nets are built bf16): its updated
+    tensors and its metrics."""
+    nets = (m["work"], m["global"], m["last"])
+    _set_bf16(nets, bf16)
+    step = branch_step_for(cfg, m["num_local"])
+    out = []
+    for i in range(len(m["lasts"])):
+        m["work"].load_state_dict(m["global"].state_dict())
+        m["bce"].load_state_dict(m["bces"][i])
+        m["last"].load_state_dict(m["lasts"][i])
+        state = init_client_state(m["work"], m["fcs"][i], m["bce"], cfg.optim.lr,
+                                  cfg.optim.momentum, cfg.optim.weight_decay)
+        _, metrics = step(state, m["global"], m["last"], m["imgs"][i], m["labels"][i],
+                          m["valid"][i], cfg.optim.lr, m["flips"][i])
+        tensors = {f"backbone.{k}": v.detach().clone() for k, v in m["work"].state_dict().items()}
+        tensors["fc"] = state.fc.detach().clone()
+        tensors.update({f"bce.{k}": v.detach().clone() for k, v in m["bce"].state_dict().items()})
+        out.append((tensors, metrics))
+    _set_bf16(nets, True)
+    return out
+
+
+def lockstep_group(cfg, m: dict, k: int, remat: bool = False):
+    """The stacked state of ``k`` members (member i % len when k exceeds
+    them, as a pad slot repeats one), its stacked last-round model and the
+    lockstep branch step; ``remat`` checkpoints the stacked blocks."""
+    n = len(m["lasts"])
+    slots = [i % n for i in range(k)]
+    net = client_parallel.stack_module(m["work"], k)
+    net.load_state_dict(stack_trees([m["global"].state_dict()] * k))
+    for mod in net.modules():
+        if hasattr(mod, "remat"):
+            mod.remat = remat
+    last = client_parallel.stack_module(m["last"], k).eval()
+    last.load_state_dict(stack_trees([m["lasts"][i] for i in slots]))
+    state = client_parallel.init_group_state(
+        net, m["fcs"][slots], stack_trees([m["bces"][i] for i in slots]), cfg.optim.lr,
+        cfg.optim.momentum, cfg.optim.weight_decay)
+    step = client_parallel.make_parallel_branch_step(
+        m["work"], m["bce"], **branch_objective_kwargs(cfg, m["num_local"]))
+
+    def run():
+        return step(state, m["global"], last, m["imgs"][slots], m["labels"][slots],
+                    m["valid"][slots], cfg.optim.lr, m["flips"][slots])
+    return state, run
+
+
+def compare_lockstep_step(cfg, m: dict, remat: bool, label: str) -> dict:
+    """One K=2 lockstep step (``remat`` on its stacked blocks) against the
+    two members' sequential steps without it: max abs differences of each
+    loss term, of the updated weights (backbone, FC rows, BCE) and of the
+    BN running statistics, each against its bound (see
+    LOCKSTEP_TOL_FACTOR)."""
+    has_bf16 = hasattr(m["work"], "bf16")
+    seq = sequential_steps(cfg, m)
+    ref = sequential_steps(cfg, m, bf16=False) if has_bf16 else seq
+    state, run = lockstep_group(cfg, m, 2, remat=remat)
+    _, metrics = run()
+    stacked = {f"backbone.{k}": v for k, v in state.backbone.state_dict().items()}
+    stacked["fc"] = state.fc.detach()
+    stacked.update({f"bce.{k}": v.detach() for k, v in state.bce.items()})
+
+    def gap(a: list, b: list, keep) -> float:
+        return max((float((a[i][0][key].double() - b[i][0][key].double()).abs().max())
+                    for i in range(2) for key in a[i][0] if keep(key)), default=0.0)
+
+    is_stat = lambda key: "running" in key  # noqa: E731
+    is_weight = lambda key: "running" not in key and "num_batches" not in key  # noqa: E731
+    lock = [({key: v[i] for key, v in stacked.items()}, None) for i in range(2)]
+    out = {"weights": gap(lock, seq, is_weight), "bn_stats": gap(lock, seq, is_stat)}
+    bound = {"weights": gap(seq, ref, is_weight), "bn_stats": gap(seq, ref, is_stat)}
+    for name in metrics._fields:
+        out[name] = max(abs(float(getattr(metrics, name)[i]) - float(getattr(seq[i][1], name)))
+                        for i in range(2))
+        bound[name] = max(abs(float(getattr(seq[i][1], name)) - float(getattr(ref[i][1], name)))
+                          for i in range(2))
+    tol = {q: (LOCKSTEP_TOL_FACTOR * b if has_bf16 else LOCKSTEP_FP32_TOL)
+           for q, b in bound.items()}
+    log("lockstep", step_check=label, remat=remat,
+        max_abs_diff=json.dumps(out), bf16_vs_fp32=json.dumps(bound), tol=json.dumps(tol))
+    bad = {q: (d, tol[q]) for q, d in out.items() if not d <= tol[q]}
+    if bad:
+        raise AssertionError(f"{label}: lockstep step differs from the sequential steps "
+                             f"beyond the bound: {bad}")
+    return {"max_abs_diff": out, "tol": tol}
+
+
+def time_lockstep_steps(cfg, m: dict, configs, iters: int = 3, batch_calls: int = 3) -> dict:
+    """Milliseconds per client-step and peak device memory: the sequential
+    step (K = 1) and the lockstep step at each (K, remat) of ``configs``,
+    each over a steady window (two warm-up steps, then ``iters`` CUDA-event
+    windows of ``batch_calls`` steps back to back) on the card, the wall
+    clock on the CPU."""
+    on_card = m["imgs"].is_cuda
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    out = {}
+
+    def measure(name: str, k: int, fn) -> None:
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            fn()
+        sync()
+        if on_card:
+            ms = cuda_ms(fn, iters, f"{name} x {batch_calls}", batch=batch_calls)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(batch_calls):
+                fn()
+            ms = (time.perf_counter() - t0) * 1e3 / batch_calls
+        peak = (round(torch.cuda.max_memory_allocated() / 2**30, 3) if on_card
+                else "not measured")
+        out[name] = {"k": k, "ms_per_step": ms, "ms_per_client_step": ms / k,
+                     "client_samples_per_s": k * m["imgs"].shape[1] / ms * 1e3,
+                     "peak_memory_gib": peak}
+        log("lockstep", timed=name, **out[name])
+
+    step = branch_step_for(cfg, m["num_local"])
+    m["work"].load_state_dict(m["global"].state_dict())
+    m["bce"].load_state_dict(m["bces"][0])
+    m["last"].load_state_dict(m["lasts"][0])
+    state = init_client_state(m["work"], m["fcs"][0], m["bce"], cfg.optim.lr,
+                              cfg.optim.momentum, cfg.optim.weight_decay)
+    measure("sequential_k1", 1, lambda: step(
+        state, m["global"], m["last"], m["imgs"][0], m["labels"][0], m["valid"][0],
+        cfg.optim.lr, m["flips"][0]))
+    del state
+    for k, remat in configs:
+        state, run = lockstep_group(cfg, m, k, remat=remat)
+        measure(f"lockstep_k{k}" + ("_remat" if remat else ""), k, run)
+        del state, run
+    return out
+
+
+def time_stacked_convs(k: int, batch: int, shapes, device: torch.device,
+                       iters: int = 10) -> dict:
+    """One 3x3 conv layer, forward and backward under the bf16 autocast,
+    for ``k`` clients at each (channels, size) of ``shapes`` (channels-last
+    inputs, as the trunk's): k separate convs (the sequential steps), one
+    grouped conv over the k clients' channels (no layout copy), and the
+    stacked conv leaf that the lockstep step runs (``stack_module`` of a
+    conv: vmap moves the client axis into the channels and back).  Logs
+    and returns ms for the k clients' layer, CUDA events on the card."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    out = {}
+    for c, size in shapes:
+        w = torch.randn(k, c, c, 3, 3, generator=gen, device=device).requires_grad_(True)
+
+        def inputs(shape):
+            return torch.randn(shape, generator=gen, device=device).contiguous(
+                memory_format=torch.channels_last).requires_grad_(True)
+
+        xs = [inputs((batch, c, size, size)) for _ in range(k)]
+        wide = inputs((batch, k * c, size, size))
+        flat = inputs((k * batch, c, size, size))
+        leaf = client_parallel.stack_module(torch.nn.Conv2d(c, c, 3, padding=1, bias=False), k)
+        leaf.to(device).weight.data.copy_(w.detach())
+
+        def run(fn):
+            def body():
+                with torch.autocast(device.type, dtype=torch.bfloat16):
+                    y = fn()
+                y.float().sum().backward()
+            return body
+
+        forms = {
+            "separate": run(lambda: torch.stack([torch.nn.functional.conv2d(
+                xs[i], w[i], padding=1) for i in range(k)])),
+            "grouped": run(lambda: torch.nn.functional.conv2d(
+                wide, w.flatten(0, 1), padding=1, groups=k)),
+            "stacked_leaf": run(lambda: leaf(flat)),
+        }
+        row = {}
+        for name, fn in forms.items():
+            for _ in range(2):
+                fn()
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+                row[name] = cuda_ms(fn, 3, f"conv {name} c={c} hw={size} k={k}",
+                                    batch=iters)
+            else:
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    fn()
+                row[name] = (time.perf_counter() - t0) * 1e3 / iters
+        out[f"c{c}_hw{size}"] = row
+        log("lockstep", conv_layer=f"c={c} hw={size} k={k} batch={batch}", ms=json.dumps(row))
+    return out
+
+
+def phase_lockstep(root: str, n_clients: int, ids: int, step_net: str = "sphnet",
+                   check_net: str = "iresnet100", step_image: int = 112,
+                   step_batch: int = 256, **round_kw) -> dict:
+    """Phase 11: the lockstep round through the training CLI (11a
+    ``--lockstep 2``, 2 rounds; 11b with ``--cache_contrastive --remat``,
+    1 round; 11c the plain objective, 1 round), each part's launches
+    counted over its rounds alone; then 11d, the lockstep step on one
+    seeded batch per member: K=2 against two sequential steps (``step_net``,
+    and ``check_net`` with ``--remat``, whose BN statistics must match),
+    and ms per client-step with peak memory at K = 1, 2, 4 and 4 with
+    ``--remat``.  Returns {part: launches} and logs the figures."""
+    by_part, figures = {}, {}
+    base = round_args(root, n_clients, ids, **round_kw)
+
+    def argv_for(out_name: str, rounds: int, extra: list, drop=()) -> list:
+        argv = [a for a in base if a not in drop]
+        argv[argv.index("--output_dir") + 1] = os.path.join(root, out_name)
+        argv[argv.index("--total_round") + 1] = str(rounds)
+        return argv + extra
+
+    def check_lines(text: str, objective: str, rounds: list, epochs: list, groups) -> None:
+        lines = LOCKSTEP_RE.findall(text)
+        if lines != [("2", objective)]:
+            raise AssertionError(f"training.log: lockstep lines {lines}")
+        losses = [int(r) for r, _, _ in PARALLEL_LOSS_RE.findall(text)]
+        if losses != rounds:
+            raise AssertionError(f"training.log: parallel loss lines for rounds {losses}")
+        if groups is not None:
+            got = [([int(c) for c in g.split(",")], int(e), int(n))
+                   for g, e, n in GROUP_RE.findall(text)]
+            want = [(g, e, n) for n in epochs for g in groups for e in range(1, n + 1)]
+            if got != want:
+                raise AssertionError(f"training.log: parallel group lines {got}, "
+                                     f"expected {want}")
+
+    groups = [list(range(n_clients))[g:g + 2] for g in range(0, n_clients, 2)]
+    before = {}
+
+    def keep_start(run):
+        before.update({k: v.detach().clone()
+                       for k, v in run.server.global_net.state_dict().items()})
+
+    # 11a: --lockstep 2, 2 rounds: one mining launch per real member and
+    # round (the pad slot prepares nothing), the ROC per candidate and round
+    # plus round 0's baselines, the exports and local_log.txt
+    run, history, launches, text = drive(argv_for("run_lockstep", 2, ["--lockstep", "2"]),
+                                         on_setup=keep_start, tag="lockstep")
+    server, out = run.server, run.cfg.runtime.output_dir
+    cands = server.local_candidates
+    expect_launches(run, launches, {"max_sim": n_clients * 2, "roc_hist": len(cands) * 3},
+                    "11a")
+    check_lines(text, "branch", [0, 1], [h["local_epochs"] for h in history], groups)
+    after = server.global_net.state_dict()
+    changed = max(float((after[k].float() - v.float()).abs().max())
+                  for k, v in before.items() if v.is_floating_point())
+    finite = all(bool(torch.isfinite(v).all()) for v in after.values() if v.is_floating_point())
+    if not (finite and changed > 0):
+        raise AssertionError(f"11a: global model finite={finite} max change={changed}")
+    check_local_logs(out, cands, 2)
+    check_exports(out, 2, cands)
+    log("lockstep", part="11a", groups=groups, global_max_change=changed)
+    by_part["11a"] = launches
+    figures["11a"] = {"round_s": [h["seconds"] for h in history],
+                      "train_s": [h["train_round_s"] - h["local_eval_s"] for h in history],
+                      "losses": [h["losses"] for h in history]}
+    del run, server
+
+    # 11b: the cached MOON step and --remat, 1 round
+    run, history, launches, text = drive(argv_for(
+        "run_lockstep_cached", 1, ["--lockstep", "2", "--cache_contrastive", "--remat"]),
+        tag="lockstep")
+    remat = [b.remat for b in run.server.backbone.modules() if hasattr(b, "remat")]
+    caches = CACHE_RE.findall(text)
+    # (the toy net of the CPU rehearsal has no residual blocks to flag)
+    if not (run.cfg.model.remat_blocks and all(remat)) or len(caches) != n_clients:
+        raise AssertionError(f"11b: remat flags {set(remat)}, {len(caches)} cache builds")
+    expect_launches(run, launches, {"max_sim": n_clients,
+                                    "roc_hist": len(run.server.local_candidates) * 2}, "11b")
+    check_lines(text, "branch", [0], [history[0]["local_epochs"]], groups)
+    by_part["11b"] = launches
+    figures["11b"] = {"round_s": history[0]["seconds"],
+                      "train_s": history[0]["train_round_s"] - history[0]["local_eval_s"]}
+    del run
+
+    # 11c: the plain objective (no public data) at run.sh's --batch_size 64
+    run, history, launches, text = drive(argv_for(
+        "run_lockstep_plain", 1, ["--lockstep", "2", "--batch_size", "64"],
+        drop=("--add_pretrained_data",)), tag="lockstep")
+    own = [len(run.server.clients[c].dataset) for c in history[0]["clients"]]
+    if history[0]["dataset_sizes"] != own or "public features" in text:
+        raise AssertionError(f"11c: dataset sizes {history[0]['dataset_sizes']} != {own}")
+    expect_launches(run, launches, {"max_sim": 0,
+                                    "roc_hist": len(run.server.local_candidates) * 2}, "11c")
+    check_lines(text, "plain", [0], [], None)
+    by_part["11c"] = launches
+    figures["11c"] = {"round_s": history[0]["seconds"]}
+    cfg = run.cfg
+    device = run.server.device
+    del run
+
+    # 11d: the step on one seeded batch per member
+    m = step_members(cfg, step_net, 4, step_image, step_batch, 2000, device, seed=11)
+    figures["11d"] = {"step_check": compare_lockstep_step(cfg, m, False, step_net)}
+    figures["11d"]["timing"] = time_lockstep_steps(
+        cfg, m, [(2, False), (4, False), (4, True)])
+    del m
+    figures["11d"]["conv_layer_ms"] = time_stacked_convs(
+        2, step_batch, [(c, step_image >> (i + 1)) for i, c in enumerate((64, 128, 256, 512))],
+        device)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    m = step_members(cfg, check_net, 2, step_image, step_batch, 2000, device, seed=21)
+    figures["11d"]["remat_check"] = compare_lockstep_step(cfg, m, True,
+                                                          f"{check_net} remat")
+    del m
+    log("lockstep", figures=json.dumps(figures))
+    return by_part
+
+
 def main() -> None:
     seconds = {}
 
@@ -2076,6 +2480,14 @@ def main() -> None:
             "10_ijbc", phase_ijbc, os.path.join(root, "ijbc"),
             os.path.join(root, "run_reference", "backbone_0.pth"),
             os.path.join(root, "run"), [0, 1])
+        lock_root = os.path.join(root, "lockstep")
+        timed("11_data", write_round_data, lock_root, n_clients=3, ids=100, size=112)
+        # 1 local epoch, then 4 (as phase 4): round 0 at random weights
+        # mines every public image, so its epochs are the phase's longest
+        parts = timed("11_lockstep", phase_lockstep, lock_root, n_clients=3, ids=100,
+                      local_epochs=1)
+        by_phase["lockstep"] = {k: sum(p[k] for p in parts.values())
+                                for k in KERNEL_COUNTERS}
     log("smoke", phase_seconds=json.dumps(seconds),
         total_s=round(sum(seconds.values()), 2))
     for record in (mining, roc, synth):

@@ -268,23 +268,34 @@ class Client:
     def finalize_local_run(self, state, avg_loss: float) -> None:
         """Keep the trained state (client.py:468-508); the optimizer's
         momentum is dropped (the reference builds a fresh SGD per run)."""
+        self.keep_local_run(_detached(state.backbone), state.fc.detach(),
+                            _detached(state.bce) if state.bce is not None else None,
+                            avg_loss)
+
+    def keep_local_run(self, backbone: StateDict, fc: torch.Tensor,
+                       bce: Optional[StateDict], avg_loss: float) -> None:
+        """``finalize_local_run`` on a run's trained tensors (the lockstep
+        round hands them over unstacked): the backbone state_dict, the
+        [local ; global] FC rows and the BCE state_dict, owned by the
+        client from here on."""
         if not np.isfinite(avg_loss):
             logger.warning(
                 "client %d: NON-FINITE loss %r — the local run diverged and "
                 "FedAvg will propagate it to the global model (sphere nets "
                 "typically need lr <= 0.001, reference run.sh:2)",
                 self.cid, avg_loss)
-        fc = state.fc.detach()
         self.fc_local = fc[: self.num_classes].clone()
         self.global_fc = fc[self.num_classes:].clone()
-        self.bce_state = _detached(state.bce) if state.bce is not None else None
-        self.trained_backbone = _detached(state.backbone)
+        self.bce_state = bce
+        self.trained_backbone = backbone
         if self.last_backbone is not None:
             self.last_backbone = self.trained_backbone
         self.last_loss = float(avg_loss)
 
-    def _flip(self, step_no: int, imgs: torch.Tensor,
-              gen: torch.Generator) -> torch.Tensor:
+    def draw_flip(self, step_no: int, imgs: torch.Tensor,
+                  gen: torch.Generator) -> torch.Tensor:
+        """The (B,) flip mask of step ``step_no``: ``flip_fn``'s, or one
+        uniform draw an image from the run's flip generator ``gen``."""
         if self.flip_fn is not None:
             return torch.as_tensor(np.asarray(self.flip_fn(step_no, imgs)),
                                    dtype=torch.bool, device=imgs.device)
@@ -307,7 +318,7 @@ class Client:
                     self.cid, len(combined), time.perf_counter() - tic)
         return caches
 
-    def _generators(self, round_seed: int):
+    def generators(self, round_seed: int):
         """This run's flip generator (None when ``flip_fn`` injects the
         masks) and dropout generator (None without dropout)."""
         cfg = self.cfg
@@ -347,7 +358,7 @@ class Client:
         if step_fn is None:
             step_fn = branch_step_for(cfg, self.num_classes, use_cache)
 
-        gen, dropout_gen = self._generators(round_seed)
+        gen, dropout_gen = self.generators(round_seed)
         # the loss sums stay on the device: one host sync per epoch; the
         # reported loss is the mean over every step of the run (reference
         # AverageMeter semantics, client.py:349-352,404)
@@ -363,7 +374,7 @@ class Client:
                 with self.timer.span("phase/local_train"):
                     for batch in loader.epoch(with_positions=use_cache):
                         imgs, labels, valid = batch[:3]
-                        flip = self._flip(n_steps, imgs, gen)
+                        flip = self.draw_flip(n_steps, imgs, gen)
                         if use_cache:
                             state, metrics = step_fn(state, g_cache, l_cache, imgs,
                                                      labels, valid, batch[3], lr,
@@ -411,11 +422,16 @@ class Client:
         """Keep a plain run's state (reference client.py:566-570): the whole
         trained FC is the local FC, and the FedAvg weight is the client's
         own set."""
+        self.keep_plain_run(_detached(state.backbone), state.fc.detach(), avg_loss)
+
+    def keep_plain_run(self, backbone: StateDict, fc: torch.Tensor,
+                       avg_loss: float) -> None:
+        """``finalize_plain_run`` on a plain run's trained tensors."""
         if not np.isfinite(avg_loss):
             logger.warning("client %d: NON-FINITE loss %r in plain local "
                            "training", self.cid, avg_loss)
-        self.fc_local = state.fc.detach().clone()
-        self.trained_backbone = _detached(state.backbone)
+        self.fc_local = fc.clone()
+        self.trained_backbone = backbone
         self.last_loss = float(avg_loss)
         self.dataset_size = len(self.dataset)
 
@@ -429,14 +445,14 @@ class Client:
         if step_fn is None:
             step_fn = make_plain_train_step(margin=cfg.loss.loss, s=cfg.loss.margin_s,
                                             m=cfg.loss.margin_m)
-        gen, dropout_gen = self._generators(round_seed)
+        gen, dropout_gen = self.generators(round_seed)
         loss_acc = torch.zeros((), device=self.device)
         n_steps = 0
         try:
             with self.timer.span("phase/local_train"):
                 for _ in range(local_epochs):
                     for imgs, labels, valid in loader.epoch():
-                        flip = self._flip(n_steps, imgs, gen)
+                        flip = self.draw_flip(n_steps, imgs, gen)
                         state, loss = step_fn(state, imgs, labels, valid, lr, flip,
                                               dropout_gen=dropout_gen)
                         loss_acc += loss  # on-device running sum

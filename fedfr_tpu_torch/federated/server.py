@@ -32,12 +32,21 @@ synchronizing the card at each span's end): ``phase/public_embed`` and
 Every switch of the JAX sequential ``train_round`` is here: the joint
 public-data objective with feature or FC-row mining and the MOON term
 recomputed or cached, the plain objective (``fed.add_pretrained_data``
-off), and SpreadOut after the aggregation.  Not ported yet (ROADMAP queue
-A): the client-parallel and lockstep rounds.
+off), and SpreadOut after the aggregation.
+
+``train_round_parallel`` is the JAX ``Server.train_round_parallel``
+(server.py:416-728) on one device: the sampled clients in groups of K =
+``fed.lockstep`` (clamped to the sample), each group advanced in lockstep
+by one stacked step a dispatch (``parallel/client_parallel.py``), both
+objectives and the cached MOON step.  A client whose epoch is shorter than
+the group's longest wraps around its reshuffled loader, as in the JAX
+package; with equal epochs the round equals the sequential one.  It takes
+no mesh: on one card there is one client-axis slice.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import logging
 import os
@@ -48,15 +57,20 @@ import torch
 
 from ..config import FedFRConfig
 from ..data.datasets import AllClientData
+from ..data.pipeline import prefetched, to_device_batch
 from ..models import BCEModule, build_backbone
-from ..parallel.fedavg import (fedavg_on_fc, spreadout, spreadout_loss,
+from ..models.iresnet import draw_dropout_keep
+from ..parallel import client_parallel as cp
+from ..parallel.fedavg import (fedavg_on_fc, spreadout, spreadout_loss, stack_trees,
                                streaming_weighted_average)
 from ..utils.checkpoint import load_backbone_state, load_pth
 from ..utils.device import resolve_device
+from ..utils.optim import step_lr
 from ..utils.profiling import SpanTimer
-from .client import Client
+from .client import Client, _detached
 from .embed import class_mean_features, embed_dataset
-from .trainer import branch_step_for, make_plain_train_step, use_cached_contrastive
+from .trainer import (branch_objective_kwargs, branch_step_for, make_plain_train_step,
+                      use_cached_contrastive)
 
 logger = logging.getLogger("fedfr_tpu_torch.server")
 
@@ -82,7 +96,8 @@ class Server:
                              cfg.model.bf16, cfg.data.image_size,
                              generator=torch.Generator().manual_seed(cfg.runtime.seed),
                              dropout=cfg.model.dropout,
-                             freeze_bn=cfg.model.freeze_bn)
+                             freeze_bn=cfg.model.freeze_bn,
+                             remat=cfg.model.remat_blocks)
         path = self._pretrained("backbone.pth") or self._pretrained("backbone.npz")
         if path:
             net.load_state_dict(load_backbone_state(cfg.model.network, path))
@@ -131,6 +146,10 @@ class Server:
                 c.init_bce_from_fc()
         self._branch_step = None
         self._plain_step = None
+        self._parallel_step = None
+        self._parallel_plain_step = None
+        self._group_nets: Dict[str, torch.nn.Module] = {}
+        self._lockstep_warned = False
 
     def _pretrained(self, name: str) -> str:
         """``<pretrained_root>/<name>`` if there is such a file, else ''."""
@@ -227,17 +246,11 @@ class Server:
         the joint or the plain objective, FedAvg, the global FC's FedAvg
         under ``return_all`` and SpreadOut under ``fed.spreadout``."""
         cfg = self.cfg
-        if not self.current_client_list:
-            self.current_client_list = self.sample_clients()
+        self._round_start()
         public_feats = None
         if cfg.fed.add_pretrained_data and cfg.fed.hn_strategy != "fc":
             # FC-row mining reads no image features: no public embed then
             public_feats = self.generate_public_features()
-
-        # adaptive local-epoch schedule (server.py:278-280)
-        if cfg.fed.adaptive_local_epoch and self.global_round != 0:
-            self.local_epoch = max(4, self.local_epoch - 2)
-            self.train_decay = max(1, int(3 / 4 * self.local_epoch))
 
         if cfg.fed.add_pretrained_data:
             self._check_uniform_classes()
@@ -281,14 +294,321 @@ class Server:
 
         logger.info("round %d avg client loss %.5f", self.global_round,
                     float(np.mean(losses)))
+        self._aggregate(models, fcs, sizes)
+        return {"avg_loss": float(np.mean(losses))}
+
+    def _aggregate(self, models, fcs, sizes) -> None:
+        """The round's end: FedAvg over every state entry, BN stats included
+        (server.py:322-338), the global FC's FedAvg under ``return_all`` and
+        SpreadOut under ``fed.spreadout``."""
+        cfg = self.cfg
         with self.timer.span("phase/aggregate"):
-            # FedAvg over every state entry, BN stats included (server.py:322-338)
             self.global_net.load_state_dict(streaming_weighted_average(models, sizes))
             if cfg.fed.return_all and fcs:
                 self.pretrained_fc = fedavg_on_fc(self.pretrained_fc,
                                                   torch.stack(fcs), sizes, p=1.0)
             if cfg.fed.spreadout:
                 self.spread_out()
+
+    # ----------------------------------------------------- lockstep rounds
+
+    def _lockstep_group_size(self) -> int:
+        """Clients per lockstep group (JAX server.py:289-310 with a client
+        axis of 1): ``fed.lockstep``, clamped to the sampled count so that no
+        group burns slots on padded duplicate compute; warns once a run."""
+        lockstep = max(1, self.cfg.fed.lockstep)
+        n = max(1, len(self.current_client_list))
+        if lockstep > n:
+            log = logger.debug if self._lockstep_warned else logger.warning
+            self._lockstep_warned = True
+            log("lockstep %d oversized for %d sampled clients on a %d-wide "
+                "client axis (padded duplicate compute); clamping to %d",
+                lockstep, n, 1, n)
+            lockstep = n
+        return lockstep
+
+    def _group_net(self, role: str, k: int) -> torch.nn.Module:
+        """The K-client stacked copy of the work backbone (``train``) or of
+        the last-round model's module (``last``), built once a run."""
+        key = f"{role}{k}"
+        if key not in self._group_nets:
+            module = self.backbone if role == "train" else self.last_net
+            self._group_nets[key] = cp.stack_module(module, k)
+        return self._group_nets[key]
+
+    @staticmethod
+    def _stack_for_group(parts: list, pad: int):
+        """Stack per-client state_dicts or tensors; pad slots repeat slot 0
+        (their results are discarded after the run)."""
+        parts = list(parts) + [parts[0]] * pad
+        if isinstance(parts[0], dict):
+            return stack_trees(parts)
+        return torch.stack(parts)
+
+    def _group_draws(self, group: List[int], pad: int, step_no: int,
+                     imgs: torch.Tensor, gens: list):
+        """One dispatch's (K, B) flip masks and, with dropout, (K*B, D) keep
+        masks: each real member draws from its own generators (the JAX
+        ``_group_keys``), in member order, as its sequential run would; a
+        pad slot repeats slot 0's masks and draws nothing."""
+        flips = [self.clients[cid].draw_flip(step_no, imgs[k], gens[k][0])
+                 for k, cid in enumerate(group)]
+        flips = torch.stack(flips + [flips[0]] * pad)
+        keep = None
+        if self.cfg.model.dropout > 0:
+            shape = (imgs.shape[1], self.backbone.fc.in_features)
+            keeps = [draw_dropout_keep(shape, self.cfg.model.dropout, g[1], imgs.device)
+                     for g in gens]
+            keep = torch.cat(keeps + [keeps[0]] * pad)
+        return flips, keep
+
+    @contextlib.contextmanager
+    def _group_feed(self, group: List[int], loaders: list, pad: int,
+                    batch_size: int, with_positions: bool = False):
+        """The device batch feed of one lockstep group (JAX server.py:232-274):
+        per-client iterators in lockstep, each wrapping around its loader
+        (a fresh shuffle every pass) so that every member yields the group's
+        ``local_epoch x`` longest-epoch steps, pad slots repeating slot 0's
+        batch, an empty-loader guard (an empty loader would never yield),
+        and the feed and loaders shut down on every exit path.  Yields
+        (feed of stacked (K, B, ...) device batches, steps per epoch)."""
+        try:
+            if min(len(l) for l in loaders) == 0:
+                empty = [cid for cid, l in zip(group, loaders) if len(l) == 0]
+                raise ValueError(f"clients {empty}: dataset smaller than the "
+                                 f"batch size {batch_size}")
+            steps_per_epoch = max(len(l) for l in loaders)
+
+            def cycling(loader):
+                while True:
+                    yield from loader.epoch(with_positions=with_positions)
+
+            iters = [cycling(l) for l in loaders]
+
+            def device_batches():
+                for _ in range(self.local_epoch * steps_per_epoch):
+                    batches = [next(it) for it in iters]
+                    batches += [batches[0]] * pad
+                    yield to_device_batch(cp.stack_client_batches(batches), self.device)
+
+            feed = prefetched(device_batches(), depth=max(1, self.cfg.data.prefetch))
+            try:
+                yield feed, steps_per_epoch
+            finally:
+                feed.close()  # joins the producer even on error
+        finally:
+            for l in loaders:
+                l.close()
+
+    def _round_start(self) -> None:
+        """What every round path does first: the client sample (unless the
+        caller drew it) and the adaptive local-epoch schedule
+        (server.py:278-280)."""
+        cfg = self.cfg
+        if not self.current_client_list:
+            self.current_client_list = self.sample_clients()
+        if cfg.fed.adaptive_local_epoch and self.global_round != 0:
+            self.local_epoch = max(4, self.local_epoch - 2)
+            self.train_decay = max(1, int(3 / 4 * self.local_epoch))
+
+    def _baselines(self, todo: List[int]) -> None:
+        """The candidates' pretrain baseline entries, epoch -1, before any
+        group trains (client.py:331-333)."""
+        if self.local_eval_callback is not None and self.global_round == 0:
+            for cid in todo:
+                if cid in self.local_candidates:
+                    self.local_eval_callback(self, self.clients[cid], epoch=-1,
+                                             variables=self.global_net.state_dict())
+
+    def train_round_parallel(self) -> Dict[str, float]:
+        """One round with the sampled clients trained K at a time in lockstep
+        (JAX server.py:416-632): per group, each real member's mining and
+        starting state (and under ``use_cached_contrastive`` its frozen
+        feature caches), taken out of the shared work modules before the
+        next member's preparation; then ``local_epoch`` x the longest
+        member's steps of the stacked branch step; then each member's
+        trained state, its local eval, and FedAvg as the sequential round.
+        The plain objective goes to ``_train_round_parallel_plain``."""
+        cfg = self.cfg
+        if not cfg.fed.add_pretrained_data:
+            return self._train_round_parallel_plain()
+        self._round_start()
+        public_feats = None
+        if cfg.fed.hn_strategy != "fc":
+            # FC-row mining reads no image features: no public embed then
+            public_feats = self.generate_public_features()
+        K = self._lockstep_group_size()
+        self._check_uniform_classes()
+        use_cache = use_cached_contrastive(cfg)
+        if self._parallel_step is None:
+            self._parallel_step = cp.make_parallel_branch_step(
+                self.backbone, self.bce_module, cached_contrastive=use_cache,
+                **branch_objective_kwargs(cfg, self.clients[0].num_classes))
+        step_fn = self._parallel_step
+        net = self._group_net("train", K)
+        last_net = None
+        if cfg.fed.contrastive and not use_cache:
+            last_net = self._group_net("last", K).eval()
+
+        models, fcs, sizes, losses = [], [], [], []
+        todo = list(self.current_client_list)
+        self._baselines(todo)
+        for g0 in range(0, len(todo), K):
+            group = todo[g0:g0 + K]
+            pad = K - len(group)
+            # prepare only the REAL members (a pad reusing client 0's
+            # preparation would rerun its mining and advance its loader)
+            loaders, backbones, fc_rows, bces, lasts, caches = [], [], [], [], [], []
+            for cid in group:
+                client = self.clients[cid]
+                combined, loader, state, member_last = client.prepare_local_run(
+                    self.global_net, self.data.public_dataset, self.pretrained_fc,
+                    public_feats, self.pretrained_labels, round_seed=self.global_round)
+                loaders.append(loader)
+                # the work modules hold this member's starting state only
+                # until the next member's preparation: take it out now
+                backbones.append(_detached(state.backbone))
+                fc_rows.append(state.fc.detach().clone())
+                bces.append(_detached(state.bce) if state.bce is not None else None)
+                if use_cache:
+                    with self.timer.span("phase/contrastive_cache"):
+                        caches.append(client.build_flip_caches(
+                            self.global_net, member_last, combined))
+                elif last_net is not None:
+                    lasts.append(_detached(member_last))
+            net.load_state_dict(self._stack_for_group(backbones, pad))
+            state = cp.init_group_state(
+                net, self._stack_for_group(fc_rows, pad),
+                self._stack_for_group(bces, pad) if bces[0] is not None else None,
+                cfg.optim.lr, cfg.optim.momentum, cfg.optim.weight_decay)
+            del backbones, fc_rows, bces
+            if use_cache:
+                # (K, nmax, 2, E): each member's caches zero-padded to the
+                # group's longest (gathers never reach pad rows)
+                nmax = max(c.shape[0] for pair in caches for c in pair)
+                g_stacked, l_stacked = (self._stack_for_group(
+                    [torch.nn.functional.pad(pair[i], (0, 0, 0, 0, 0, nmax - pair[i].shape[0]))
+                     for pair in caches], pad) for i in (0, 1))
+                del caches
+            elif last_net is not None:
+                last_net.load_state_dict(self._stack_for_group(lasts, pad))
+                del lasts
+            gens = [self.clients[cid].generators(self.global_round) for cid in group]
+
+            acc = torch.zeros(K, 4, device=self.device)
+            step_no = 0
+            with self._group_feed(group, loaders, pad, cfg.data.combined_batch_size,
+                                  with_positions=use_cache) as (feed, steps_per_epoch):
+                with self.timer.span("phase/local_train"):
+                    for epoch in range(self.local_epoch):
+                        lr = step_lr(cfg.optim.lr, epoch, self.train_decay,
+                                     cfg.optim.lr_gamma)
+                        for _ in range(steps_per_epoch):
+                            batch = next(feed)
+                            imgs, labels, valid = batch[:3]
+                            flips, keep = self._group_draws(group, pad, step_no, imgs, gens)
+                            if use_cache:
+                                state, metrics = step_fn(
+                                    state, g_stacked, l_stacked, imgs, labels, valid,
+                                    batch[3], lr, flips, dropout_keep=keep)
+                            else:
+                                state, metrics = step_fn(
+                                    state, self.global_net, last_net, imgs, labels,
+                                    valid, lr, flips, dropout_keep=keep)
+                            # on-device running sums: the reported loss is the
+                            # all-step mean, as on the sequential path
+                            acc += torch.stack(metrics, dim=1)
+                            step_no += 1
+                        logger.info("parallel group %s epoch %d/%d done",
+                                    group, epoch + 1, self.local_epoch)
+            sums = acc.cpu().numpy()
+            if use_cache:
+                del g_stacked, l_stacked
+            for (backbone, fc, bce), cid, loss_sum in zip(
+                    cp.group_client_states(state, len(group)), group, sums[:, 0]):
+                client = self.clients[cid]
+                client.keep_local_run(backbone, fc, bce, loss_sum / max(step_no, 1))
+                losses.append(client.last_loss)
+                sizes.append(client.dataset_size)
+                models.append(client.trained_backbone)
+                if cfg.fed.return_all and client.global_fc is not None:
+                    fcs.append(client.global_fc)
+                if self.local_eval_callback is not None and cid in self.local_candidates:
+                    self.local_eval_callback(self, client)
+            del state
+
+        logger.info("round %d (parallel) avg client loss %.5f",
+                    self.global_round, float(np.mean(losses)))
+        self._aggregate(models, fcs, sizes)
+        return {"avg_loss": float(np.mean(losses))}
+
+    def _train_round_parallel_plain(self) -> Dict[str, float]:
+        """The plain objective's lockstep round (JAX server.py:634-728): the
+        same groups, feed and wrap-around over each member's own data at
+        ``data.batch_size``, a constant lr, no FC averaging."""
+        cfg = self.cfg
+        self._round_start()
+        K = self._lockstep_group_size()
+        if len({self.clients[cid].num_classes
+                for cid in self.current_client_list}) > 1:
+            raise ValueError("plain client-parallel requires uniform local "
+                             "class counts (ragged FC rows cannot stack); "
+                             "run sequentially")
+        if self._parallel_plain_step is None:
+            self._parallel_plain_step = cp.make_parallel_plain_step(
+                self.backbone, margin=cfg.loss.loss, s=cfg.loss.margin_s,
+                m=cfg.loss.margin_m)
+        step_fn = self._parallel_plain_step
+        net = self._group_net("train", K)
+
+        models, sizes, losses = [], [], []
+        todo = list(self.current_client_list)
+        self._baselines(todo)
+        lr = cfg.optim.lr  # constant over the run (client.py:528-530)
+        for g0 in range(0, len(todo), K):
+            group = todo[g0:g0 + K]
+            pad = K - len(group)
+            loaders, backbones, fc_rows = [], [], []
+            for cid in group:
+                loader, state = self.clients[cid].prepare_plain_run(
+                    self.global_net, round_seed=self.global_round)
+                loaders.append(loader)
+                backbones.append(_detached(state.backbone))
+                fc_rows.append(state.fc.detach().clone())
+            net.load_state_dict(self._stack_for_group(backbones, pad))
+            state = cp.init_group_state(net, self._stack_for_group(fc_rows, pad), None,
+                                     cfg.optim.lr, cfg.optim.momentum,
+                                     cfg.optim.weight_decay)
+            del backbones, fc_rows
+            gens = [self.clients[cid].generators(self.global_round) for cid in group]
+
+            acc = torch.zeros(K, device=self.device)
+            step_no = 0
+            with self._group_feed(group, loaders, pad, cfg.data.batch_size) as (
+                    feed, steps_per_epoch):
+                with self.timer.span("phase/local_train"):
+                    for _ in range(self.local_epoch * steps_per_epoch):
+                        imgs, labels, valid = next(feed)
+                        flips, keep = self._group_draws(group, pad, step_no, imgs, gens)
+                        state, loss = step_fn(state, imgs, labels, valid, lr, flips,
+                                              dropout_keep=keep)
+                        acc += loss
+                        step_no += 1
+            sums = acc.cpu().numpy()
+            for (backbone, fc, _), cid, loss_sum in zip(
+                    cp.group_client_states(state, len(group)), group, sums):
+                client = self.clients[cid]
+                client.keep_plain_run(backbone, fc, float(loss_sum) / max(step_no, 1))
+                losses.append(client.last_loss)
+                sizes.append(client.dataset_size)
+                models.append(client.trained_backbone)
+                if self.local_eval_callback is not None and cid in self.local_candidates:
+                    self.local_eval_callback(self, client)
+            del state
+
+        logger.info("round %d (parallel plain) avg client loss %.5f",
+                    self.global_round, float(np.mean(losses)))
+        self._aggregate(models, [], sizes)
         return {"avg_loss": float(np.mean(losses))}
 
     def spread_out(self) -> None:

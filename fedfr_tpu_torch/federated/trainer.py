@@ -11,7 +11,9 @@ reference hot loop (client.py:355-404):
          + mu * MOON-contrastive(feats; global model, last-round model)
 
 with one SGD(momentum 0.9, wd 5e-4) over backbone + FC + BCE, and the
-backbone's BatchNorm statistics updated by its train-mode forward.
+backbone's BatchNorm statistics updated by its train-mode forward.  The
+loss bodies (``make_branch_objective``, ``make_plain_objective``) are
+shared with the lockstep step of ``parallel/client_parallel.py``.
 
 Randomness is explicit: the step takes the augmentation flip mask as an
 argument, where the JAX step draws it inside from its key, and iresnet's
@@ -79,16 +81,67 @@ def _sgd_step(state: ClientTrainState, total: torch.Tensor, lr: float) -> None:
     state.opt.step()
 
 
-def make_branch_train_step(*, margin: str = "CosFace", s: float = 30.0,
-                           m: float = 0.4, bce_weight: float = 10.0,
-                           bce_r: float = 30.0, bce_lambda: float = 0.7,
-                           mu: float = 5.0, temperature: float = 0.5,
-                           bce_detach: bool = False, contrastive: bool = True,
-                           reweight: bool = False, num_local: int = 100,
-                           num_clients: int = 40,
-                           fedprox_mu: float = 0.0,
-                           cached_contrastive: bool = False) -> Callable:
-    """Train step for the joint local+public objective with the BCE branch.
+def proximal_sq(params, global_params) -> torch.Tensor:
+    """FedProx's ||w - w_global||^2 over the backbone's parameters, summed
+    parameter by parameter in module order."""
+    return sum(((p - g.detach()) ** 2).sum() for p, g in zip(params, global_params))
+
+
+def make_branch_objective(*, margin: str = "CosFace", s: float = 30.0,
+                          m: float = 0.4, bce_weight: float = 10.0,
+                          bce_r: float = 30.0, bce_lambda: float = 0.7,
+                          mu: float = 5.0, temperature: float = 0.5,
+                          bce_detach: bool = False, contrastive: bool = True,
+                          reweight: bool = False, num_local: int = 100,
+                          num_clients: int = 40,
+                          fedprox_mu: float = 0.0) -> Callable:
+    """The joint objective's loss body, shared by the sequential step below
+    and the client-parallel step (``parallel/client_parallel.py``), which
+    runs it once per client under ``torch.func.vmap``.
+
+    Returns ``objective(feats, fc, bce, labels, valid, con_feats, prox_sq)
+    -> (total, cos_loss, bce_loss, con_loss)``: ``feats`` the trainable
+    forward's (B, E) output, ``fc`` the (C, E) rows, ``bce(feats, labels)``
+    the BCE branch or None, ``labels`` int64, ``con_feats()`` the frozen
+    models' (global, last) features (called under ``no_grad``) and
+    ``prox_sq()`` FedProx's squared distance (called only when
+    ``fedprox_mu`` > 0)."""
+    margin_fn = MARGINS[margin]
+
+    def objective(feats: torch.Tensor, fc: torch.Tensor, bce: Optional[Callable],
+                  labels: torch.Tensor, valid: torch.Tensor, con_feats: Callable,
+                  prox_sq: Optional[Callable]):
+        cos = cosine_logits(feats, fc)
+        logits = margin_fn(cos, labels, s, m)
+        if reweight:
+            logits = reweight_negatives(logits, labels, num_local, num_clients)
+        cos_l = softmax_cross_entropy(logits, labels, valid)
+
+        if bce is not None:
+            bce_logits, gts = bce(feats.detach() if bce_detach else feats, labels)
+            bce_l = bce_loss(bce_logits, gts, bce_r, bce_lambda, valid)
+        else:  # reference client.py:320,383 guards the term on BCE_local
+            bce_l = torch.zeros((), device=feats.device)
+
+        if contrastive:
+            with torch.no_grad():
+                gfeats, lfeats = con_feats()
+            con_l = moon_contrastive(feats, gfeats, lfeats, temperature, valid)
+        else:
+            con_l = torch.zeros((), device=feats.device)
+
+        total = cos_l + bce_weight * bce_l + mu * con_l
+        if fedprox_mu > 0.0:
+            total = total + 0.5 * fedprox_mu * prox_sq()
+        return total, cos_l, bce_l, con_l
+
+    return objective
+
+
+def make_branch_train_step(*, cached_contrastive: bool = False,
+                           **objective_kwargs) -> Callable:
+    """Train step for the joint local+public objective with the BCE branch
+    (``objective_kwargs``: those of ``make_branch_objective``).
 
     Returns ``step(state, global_net, last_net, images_u8, labels, valid, lr,
     flip, dropout_gen=None) -> (state, StepMetrics)``.  ``state`` is updated
@@ -110,13 +163,8 @@ def make_branch_train_step(*, margin: str = "CosFace", s: float = 30.0,
     the trainable forward and the gather, so the features belong to the
     images the step trains on.  The loss body is the recompute step's.
     """
-    margin_fn = MARGINS[margin]
-    if cached_contrastive and not contrastive:
-        raise ValueError("cached_contrastive requires contrastive=True")
-    if cached_contrastive and fedprox_mu > 0.0:
-        raise ValueError(
-            "cached_contrastive drops the global model from the step; the "
-            "FedProx proximal term needs it — disable one")
+    check_cached_contrastive(cached_contrastive, objective_kwargs)
+    objective = make_branch_objective(**objective_kwargs)
 
     def run(state: ClientTrainState, x: torch.Tensor, con_feats: Callable,
             prox_net: Optional[nn.Module], labels: torch.Tensor,
@@ -124,33 +172,9 @@ def make_branch_train_step(*, margin: str = "CosFace", s: float = 30.0,
             dropout_gen: Optional[torch.Generator]):
         labels = labels.long()
         feats = _forward(state, x, dropout_gen)
-
-        cos = cosine_logits(feats, state.fc)
-        logits = margin_fn(cos, labels, s, m)
-        if reweight:
-            logits = reweight_negatives(logits, labels, num_local, num_clients)
-        cos_l = softmax_cross_entropy(logits, labels, valid)
-
-        if state.bce is not None:
-            bce_logits, gts = state.bce(feats.detach() if bce_detach else feats,
-                                        labels)
-            bce_l = bce_loss(bce_logits, gts, bce_r, bce_lambda, valid)
-        else:  # reference client.py:320,383 guards the term on BCE_local
-            bce_l = torch.zeros((), device=feats.device)
-
-        if contrastive:
-            with torch.no_grad():
-                gfeats, lfeats = con_feats()
-            con_l = moon_contrastive(feats, gfeats, lfeats, temperature, valid)
-        else:
-            con_l = torch.zeros((), device=feats.device)
-
-        total = cos_l + bce_weight * bce_l + mu * con_l
-        if fedprox_mu > 0.0:
-            sq = sum(((p - g.detach()) ** 2).sum() for p, g in zip(
-                state.backbone.parameters(), prox_net.parameters()))
-            total = total + 0.5 * fedprox_mu * sq
-
+        total, cos_l, bce_l, con_l = objective(
+            feats, state.fc, state.bce, labels, valid, con_feats,
+            lambda: proximal_sq(state.backbone.parameters(), prox_net.parameters()))
         _sgd_step(state, total, lr)
         metrics = StepMetrics(total.detach(), cos_l.detach(), bce_l.detach(),
                               con_l.detach())
@@ -178,17 +202,49 @@ def make_branch_train_step(*, margin: str = "CosFace", s: float = 30.0,
     return cached_step if cached_contrastive else step
 
 
-def branch_step_for(cfg, num_local: int, cached_contrastive: bool = False) -> Callable:
-    """``make_branch_train_step`` with the loss and federated settings of
-    ``cfg`` (``num_local``: the clients' local class count)."""
-    return make_branch_train_step(
+def check_cached_contrastive(cached_contrastive: bool, objective_kwargs) -> None:
+    """The cached step's preconditions: the MOON term on, FedProx off."""
+    if cached_contrastive and not objective_kwargs.get("contrastive", True):
+        raise ValueError("cached_contrastive requires contrastive=True")
+    if cached_contrastive and objective_kwargs.get("fedprox_mu", 0.0) > 0.0:
+        raise ValueError(
+            "cached_contrastive drops the global model from the step; the "
+            "FedProx proximal term needs it — disable one")
+
+
+def branch_objective_kwargs(cfg, num_local: int) -> dict:
+    """``make_branch_objective``'s loss and federated settings from ``cfg``
+    (``num_local``: the clients' local class count)."""
+    return dict(
         margin=cfg.loss.loss, s=cfg.loss.margin_s, m=cfg.loss.margin_m,
         bce_weight=cfg.loss.bce_weight, bce_r=cfg.loss.bce_r,
         bce_lambda=cfg.loss.bce_lambda, mu=cfg.loss.mu,
         temperature=cfg.loss.temperature, bce_detach=cfg.fed.bce_detach,
         contrastive=cfg.fed.contrastive, reweight=cfg.fed.reweight_cosface,
         num_local=num_local, num_clients=cfg.data.num_clients,
-        fedprox_mu=cfg.fed.fedprox_mu, cached_contrastive=cached_contrastive)
+        fedprox_mu=cfg.fed.fedprox_mu)
+
+
+def branch_step_for(cfg, num_local: int, cached_contrastive: bool = False) -> Callable:
+    """``make_branch_train_step`` with the loss and federated settings of
+    ``cfg`` (``num_local``: the clients' local class count)."""
+    return make_branch_train_step(cached_contrastive=cached_contrastive,
+                                  **branch_objective_kwargs(cfg, num_local))
+
+
+def make_plain_objective(*, margin: str = "CosFace", s: float = 30.0,
+                         m: float = 0.4) -> Callable:
+    """The plain objective's loss body, ``objective(feats, fc, labels,
+    valid)``: the margin softmax CE over the client's own FC rows, shared by
+    the sequential and the client-parallel plain steps."""
+    margin_fn = MARGINS[margin]
+
+    def objective(feats: torch.Tensor, fc: torch.Tensor, labels: torch.Tensor,
+                  valid: torch.Tensor) -> torch.Tensor:
+        return softmax_cross_entropy(
+            margin_fn(cosine_logits(feats, fc), labels, s, m), labels, valid)
+
+    return objective
 
 
 def make_plain_train_step(*, margin: str = "CosFace", s: float = 30.0,
@@ -200,15 +256,14 @@ def make_plain_train_step(*, margin: str = "CosFace", s: float = 30.0,
     step's explicit flip mask and dropout generator.  No reweighting: the
     plain logits have only the local columns, and the JAX server never
     asks for it here."""
-    margin_fn = MARGINS[margin]
+    objective = make_plain_objective(margin=margin, s=s, m=m)
 
     def step(state: ClientTrainState, images_u8: torch.Tensor,
              labels: torch.Tensor, valid: torch.Tensor, lr: float,
              flip: torch.Tensor, dropout_gen: Optional[torch.Generator] = None):
         labels = labels.long()
         feats = _forward(state, train_preprocess(flip, images_u8), dropout_gen)
-        loss = softmax_cross_entropy(
-            margin_fn(cosine_logits(feats, state.fc), labels, s, m), labels, valid)
+        loss = objective(feats, state.fc, labels, valid)
         _sgd_step(state, loss, lr)
         return state, loss.detach()
 

@@ -33,21 +33,25 @@ class ToyNet(nn.Module):
 
 def build_backbone(name: str, embedding_size: int = 512, bf16: bool = True,
                    image_size: int = 112, generator: torch.Generator = None,
-                   dropout: float = 0.0, freeze_bn: bool = False) -> nn.Module:
+                   dropout: float = 0.0, freeze_bn: bool = False,
+                   remat: bool = False) -> nn.Module:
     """``toy``, ``sphnet`` (sphere64), ``sphnet20`` or ``iresnet<depth>``
     (18/34/50/100/200) on the CPU; the caller moves it to its device.
     ``dropout`` and ``freeze_bn`` are iresnet's (the pre-embedding dropout
     and BN kept in inference mode while training); the JAX package ignores
-    them for the other nets, and so does the port."""
+    them for the other nets, and so does the port.  ``remat`` (the JAX
+    ``remat_blocks``, factory.py:35-53) checkpoints every residual block of
+    sphnet and iresnet; the toy net has none, and ignores it as the JAX one
+    does."""
     if name == "toy":
         return ToyNet(embedding_size=embedding_size)
     if name in ("sphnet", "sphnet20"):
         return SphNet(depth=20 if name == "sphnet20" else 64,
                       embedding_size=embedding_size, bf16=bf16,
-                      image_size=image_size, generator=generator)
+                      image_size=image_size, generator=generator, remat=remat)
     if name.startswith("iresnet") and name[len("iresnet"):].isdigit():
         return IResNet(depth=int(name[len("iresnet"):]),
                        embedding_size=embedding_size, dropout=dropout,
                        bf16=bf16, freeze_bn=freeze_bn, image_size=image_size,
-                       generator=generator)
+                       generator=generator, remat=remat)
     raise ValueError(f"unknown backbone '{name}'")

@@ -24,7 +24,12 @@ still take gradients.
 
 Dropout is the one random layer, and its randomness is injected: in train
 mode with ``dropout > 0`` the forward takes an explicit ``torch.Generator``
-(``dropout_gen``) and raises without one.
+(``dropout_gen``), or the keep mask drawn from one (``dropout_keep``, as
+``draw_dropout_keep`` draws it), and raises without either.
+
+``remat`` checkpoints every IBasicBlock (``layers.remat_call``; JAX
+``remat_blocks``, iresnet.py:93-115): the same forward, BN running
+statistics updated once, by the forward, and the same gradients.
 
 Initialization: the JAX package (and the reference) draw the conv kernels
 from N(0, 0.1).  With BN's initial running statistics (mean 0, var 1) that
@@ -49,7 +54,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import PReLU, batch_norm, conv3x3, lecun_normal
+from .layers import PReLU, batch_norm, conv3x3, lecun_normal, remat_call
 
 IRES_LAYERS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 14, 3),
                100: (3, 13, 30, 3), 200: (6, 26, 60, 6)}
@@ -59,6 +64,14 @@ IRES_FILTERS = (64, 128, 256, 512)
 def _stage_out(size: int) -> int:
     """Spatial size after one stride-2, pad-1, 3x3 conv."""
     return (size - 1) // 2 + 1
+
+
+def draw_dropout_keep(shape, p: float, generator: torch.Generator,
+                      device) -> torch.Tensor:
+    """The train-mode dropout's keep mask over the flattened pre-embedding
+    features (``shape`` = (B, fc.in_features)): one uniform draw a feature
+    from ``generator``."""
+    return torch.rand(shape, generator=generator, device=device) >= p
 
 
 class IBasicBlock(nn.Module):
@@ -78,8 +91,14 @@ class IBasicBlock(nn.Module):
             self.downsample = nn.Sequential(
                 nn.Conv2d(inplanes, planes, 1, stride=stride, bias=False),
                 batch_norm(planes))
+        self.remat = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.remat:
+            return remat_call(self, self._residual, x)
+        return self._residual(x)
+
+    def _residual(self, x: torch.Tensor) -> torch.Tensor:
         # x is the fp32 residual stream; the convs autocast to bf16
         y = self.conv1(self.bn1(x))
         y = self.prelu(self.bn2(y.float()))
@@ -110,7 +129,8 @@ class IResNet(nn.Module):
     def __init__(self, depth: int = 18, embedding_size: int = 512,
                  dropout: float = 0.0, bf16: bool = True,
                  freeze_bn: bool = False, image_size: int = 112,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 remat: bool = False):
         super().__init__()
         if depth not in IRES_LAYERS:
             raise ValueError(f"iresnet{depth} unsupported "
@@ -132,6 +152,9 @@ class IResNet(nn.Module):
         self.bn2 = batch_norm(512)
         self.fc = nn.Linear(512 * hw * hw, embedding_size)
         self.features = FeatureNorm(embedding_size, eps=1e-5, momentum=0.1)
+        for blk in self.modules():
+            if isinstance(blk, IBasicBlock):
+                blk.remat = remat
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -156,17 +179,19 @@ class IResNet(nn.Module):
         return self
 
     def forward(self, x: torch.Tensor,
-                dropout_gen: Optional[torch.Generator] = None) -> torch.Tensor:
+                dropout_gen: Optional[torch.Generator] = None,
+                dropout_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         with torch.autocast(x.device.type, dtype=torch.bfloat16,
                             enabled=self.bf16):
             x = self.prelu(self.bn1(self.conv1(x).float()))
             x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
         x = self.bn2(x.float()).flatten(1)
         if self.training and self.dropout > 0:
-            if dropout_gen is None:
-                raise ValueError("iresnet dropout in train mode needs an "
-                                 "explicit dropout_gen")
-            keep = torch.rand(x.shape, generator=dropout_gen,
-                              device=x.device) >= self.dropout
-            x = torch.where(keep, x / (1.0 - self.dropout), 0.0)
+            if dropout_keep is None:
+                if dropout_gen is None:
+                    raise ValueError("iresnet dropout in train mode needs an "
+                                     "explicit dropout_gen")
+                dropout_keep = draw_dropout_keep(x.shape, self.dropout,
+                                                 dropout_gen, x.device)
+            x = torch.where(dropout_keep, x / (1.0 - self.dropout), 0.0)
         return self.features(self.fc(x))

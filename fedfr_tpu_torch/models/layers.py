@@ -4,15 +4,22 @@ Counterpart of ``fedfr_tpu/models/layers.py``.  The JAX package's
 ``TorchBatchNorm`` reproduces torch's BatchNorm train semantics (momentum
 0.1, biased variance to normalize, unbiased variance into the running
 estimate), so the port uses ``nn.BatchNorm2d`` as it is.
+
+``remat_call`` is the counterpart of ``nn.remat`` around a residual block
+(the JAX ``remat_blocks`` option): ``torch.utils.checkpoint`` keeps only
+the block's input and recomputes its activations in the backward.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 class PReLU(nn.PReLU):
@@ -59,3 +66,33 @@ def lecun_normal(tensor: torch.Tensor,
 def xavier_uniform(tensor: torch.Tensor,
                    generator: torch.Generator = None) -> torch.Tensor:
     return nn.init.xavier_uniform_(tensor, generator=generator)
+
+
+@contextlib.contextmanager
+def _buffers_kept(module: nn.Module):
+    """Restore every buffer of ``module`` on exit: a recomputed train-mode
+    BatchNorm would otherwise update its running statistics (and
+    ``num_batches_tracked``) a second time."""
+    saved = [(b, b.clone()) for b in module.buffers()]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, value in saved:
+                b.copy_(value)
+
+
+def remat_call(block: nn.Module, fn: Callable[[torch.Tensor], torch.Tensor],
+               x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)``, the forward of ``block``, checkpointed where autograd
+    records it: the backward recomputes the block's activations from ``x``
+    (``use_reentrant=False``; the recompute runs under the forward's
+    autocast state).  The recompute keeps ``block``'s buffers as the
+    forward left them, so the forward's output, the BatchNorm statistics and
+    the gradients are those of the plain call.  The blocks draw no random
+    numbers, so no RNG state is stashed."""
+    if not torch.is_grad_enabled():
+        return fn(x)
+    return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _buffers_kept(block)))

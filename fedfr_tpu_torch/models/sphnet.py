@@ -12,7 +12,9 @@ layout (backbones/sphnet.py), so its state_dict keys are the ones
 sphere20 uses blocks (1, 2, 4, 1), sphere64 (the FedFR default) (3, 7, 16, 3)
 over filters (64, 128, 256, 512).  With ``bf16`` the conv trunk runs under
 ``torch.autocast(bfloat16)`` and the embedding ``fc`` in fp32, as the JAX
-package's bf16 trunk with its fp32 head.
+package's bf16 trunk with its fp32 head.  ``remat`` checkpoints every
+SphereBlock (``layers.remat_call``; JAX ``remat_blocks``, sphnet.py:60-104):
+the same numbers, with the blocks' activations recomputed in the backward.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import PReLU, conv3x3, normal_init, xavier_uniform
+from .layers import PReLU, conv3x3, normal_init, remat_call, xavier_uniform
 
 SPH_LAYERS = {20: (1, 2, 4, 1), 64: (3, 7, 16, 3)}
 SPH_FILTERS = (64, 128, 256, 512)
@@ -40,9 +42,15 @@ class SphereBlock(nn.Module):
         self.prelu1 = PReLU(features)
         self.conv2 = conv3x3(features, features)
         self.prelu2 = PReLU(features)
+        self.remat = False
+
+    def _residual(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.prelu2(self.conv2(self.prelu1(self.conv1(x))))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.prelu2(self.conv2(self.prelu1(self.conv1(x))))
+        if self.remat:
+            return remat_call(self, self._residual, x)
+        return self._residual(x)
 
 
 class SphNet(nn.Module):
@@ -50,7 +58,7 @@ class SphNet(nn.Module):
 
     def __init__(self, depth: int = 64, embedding_size: int = 512,
                  bf16: bool = True, image_size: int = 112,
-                 generator: torch.Generator = None):
+                 generator: torch.Generator = None, remat: bool = False):
         super().__init__()
         if depth not in SPH_LAYERS:
             raise ValueError(f"sphere{depth} unsupported (20 or 64)")
@@ -64,6 +72,9 @@ class SphNet(nn.Module):
             setattr(self, f"layer{stage}", nn.Sequential(*mods))
             cin, hw = feats, _stage_out(hw)
         self.fc = nn.Linear(cin * hw * hw, embedding_size)
+        for blk in self.modules():
+            if isinstance(blk, SphereBlock):
+                blk.remat = remat
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: torch.Generator = None) -> None:

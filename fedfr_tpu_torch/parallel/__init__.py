@@ -1,5 +1,5 @@
-from .fedavg import (fedavg_on_fc, spreadout, spreadout_loss,
-                     streaming_weighted_average)
+from .fedavg import (fedavg_on_fc, spreadout, spreadout_loss, stack_trees,
+                     streaming_weighted_average, unstack_tree)
 
-__all__ = ["fedavg_on_fc", "spreadout", "spreadout_loss",
-           "streaming_weighted_average"]
+__all__ = ["fedavg_on_fc", "spreadout", "spreadout_loss", "stack_trees",
+           "streaming_weighted_average", "unstack_tree"]

@@ -2,6 +2,9 @@
 
 Counterpart of ``fedfr_tpu/parallel/fedavg.py`` (reference server.py:25-46):
 
+* ``stack_trees`` / ``unstack_tree`` — client state_dicts stacked on a
+  leading client axis and taken apart again (the lockstep round's group
+  states, ``parallel/client_parallel.py``).
 * ``streaming_weighted_average`` — dataset-size-weighted mean of *every*
   floating state_dict entry, BatchNorm running statistics included, as
   ``FedPavg`` averages every entry (server.py:29-33).  Integer buffers
@@ -15,7 +18,7 @@ Counterpart of ``fedfr_tpu/parallel/fedavg.py`` (reference server.py:25-46):
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -23,6 +26,18 @@ import torch
 from ..models.heads import l2_normalize
 
 StateDict = Dict[str, torch.Tensor]
+
+
+def stack_trees(trees: Sequence[StateDict]) -> StateDict:
+    """State_dicts with the same keys and shapes -> one state_dict of
+    (len(trees), ...) tensors."""
+    return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
+
+
+def unstack_tree(tree: StateDict, n: int) -> List[StateDict]:
+    """The first ``n`` slots of a stacked state_dict, each entry a copy of
+    its own."""
+    return [{k: v[i].clone() for k, v in tree.items()} for i in range(n)]
 
 
 def _normalized(weights) -> np.ndarray:

@@ -37,7 +37,11 @@ and a ``memory: device in_use ... MB peak ... MB | host maxrss ... MB``
 line; at the end the CLI's own spans (``train_round``, ``eval``).
 ``--profile`` writes a ``torch.profiler`` trace of round 0 to
 ``<output_dir>/torch_trace/trace.json``.
-The flags of paths not ported yet raise, each naming its ROADMAP item.
+``--lockstep K`` (K > 1) trains the sampled clients K at a time in lockstep
+(``Server.train_round_parallel``, one stacked step a dispatch, as the JAX
+CLI's client-parallel round on one chip); ``--remat`` checkpoints the
+backbone's residual blocks (their activations recomputed in the backward),
+in either round.
 """
 
 from __future__ import annotations
@@ -49,7 +53,7 @@ import os
 import resource
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -96,8 +100,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(client, round) and gather them per step in place "
                         "of two frozen forwards (same arithmetic)")
     p.add_argument("--lockstep", type=int, default=1,
-                   help="values above 1 are not ported: raise (ROADMAP "
-                        "queue A item 13)")
+                   help="clients trained together in lockstep, one stacked "
+                        "step a dispatch (1: the sequential round)")
     p.add_argument("--return_all", action="store_true")
     p.add_argument("--combine_dataset", action="store_true")
     p.add_argument("--BCE_local", action="store_true")
@@ -129,7 +133,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="no effect here: a JAX compile option; the port's "
                         "modules have one layout")
     p.add_argument("--remat", action="store_true",
-                   help="not ported: raises (ROADMAP queue A item 13)")
+                   help="checkpoint the residual blocks: recompute their "
+                        "activations in the backward (less activation memory)")
     p.add_argument("--freeze_bn", action="store_true",
                    help="iresnet: BatchNorm in inference mode while training")
     p.add_argument("--dropout", type=float, default=0.0,
@@ -169,13 +174,14 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+# flags whose path the port does not have yet, each with its ROADMAP item:
+# none is left, every flag of the repository's train.py runs
+UNPORTED: Dict[str, Callable] = {}
+
+
 def check_flags(args) -> None:
     """Raise on every flag whose path the port does not have yet."""
-    unported = {
-        "--lockstep > 1 (ROADMAP queue A item 13)": args.lockstep > 1,
-        "--remat (ROADMAP queue A item 13)": args.remat,
-    }
-    bad = [name for name, on in unported.items() if on]
+    bad = [name for name, on in UNPORTED.items() if on(args)]
     if bad:
         raise NotImplementedError(
             "not ported to the PyTorch package yet: " + ", ".join(bad))
@@ -315,6 +321,7 @@ class Training:
     ckpt: RoundCheckpointer  # the resume state
     timer: SpanTimer  # the CLI's own spans: train_round, eval
     trace_dir: Optional[str] = None  # --profile: round 0's trace goes here
+    lockstep: bool = False  # the rounds run Server.train_round_parallel
 
     @property
     def done(self) -> bool:
@@ -358,13 +365,20 @@ def setup(args) -> Training:
             best = ckpt.last_extra.get("best")
             if bin_cb is not None and best and len(best) == len(bin_cb.highest):
                 bin_cb.highest = [tuple(b) for b in best]
+    # one card: the JAX CLI's client-parallel round over a one-device
+    # client axis, K = --lockstep clients a group (train.py:180-187)
+    lockstep = cfg.fed.client_parallel and cfg.fed.lockstep > 1
+    if lockstep:
+        logger.info("client-parallel training over %d devices x lockstep %d "
+                    "(%s objective)", 1, cfg.fed.lockstep,
+                    "branch" if cfg.fed.add_pretrained_data else "plain")
     trace_dir = None
     if args.profile:
         trace_dir = os.path.join(cfg.runtime.output_dir, "torch_trace")
         logger.info("profiling first round to %s", trace_dir)
     logger.info("=== Start Federated learning ===")
     return Training(cfg, logger, server, bin_cb, local_cb, spent, ckpt,
-                    SpanTimer(server.device), trace_dir)
+                    SpanTimer(server.device), trace_dir, lockstep)
 
 
 def log_memory(logger: logging.Logger, device: torch.device) -> Dict[str, float]:
@@ -398,7 +412,8 @@ def run_round(t: Training) -> Dict:
     with torch_trace(t.trace_dir if traced else None, server.device):
         t0 = time.perf_counter()
         with t.timer.span("train_round"):  # the span ends synchronized
-            stats = server.train_round()
+            stats = (server.train_round_parallel() if t.lockstep
+                     else server.train_round())
         train_s = time.perf_counter() - t0
     if traced:
         logger.info("round %d trace written to %s", rnd, t.trace_dir)

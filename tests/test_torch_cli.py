@@ -2,8 +2,8 @@
 
 * its parser accepts every flag of the repository's train.py (read by AST);
 * ``build_config`` gives the JAX CLI's config from the same arguments;
-* flags of paths not ported raise ``NotImplementedError`` naming their
-  ROADMAP item, the resume-state flags run, and the CLI and the eval
+* the flags once refused as unported (``--lockstep``, ``--remat``) pass
+  ``check_flags``, the resume-state flags run, and the CLI and the eval
   callbacks default to ``cuda`` and raise without it;
 * two toy rounds through ``main`` on data written by chip_smoke.py's own
   writers: local_log.txt as parse_log.py reads it (the epoch -1 baseline,
@@ -11,7 +11,8 @@
   exports; a round whose argv carries run.sh's ``--pretrained_root`` and
   ``--fedface``, and the source snapshot in ``<output_dir>/code``; and
   chip_smoke.py's phases, rehearsed on the CPU (phase 4 with the CLI's
-  ``--profile``, phase 8 on a tiny ``synth:`` universe).
+  ``--profile``, phase 8 on a tiny ``synth:`` universe, phase 11's
+  lockstep rounds over 3 clients).
 """
 
 import ast
@@ -69,10 +70,16 @@ def test_build_config_matches_jax_cli():
     (["--remat"], "item 13"),
 ])
 def test_unported_flags_raise(argv, item, tmp_path):
-    args = train_cli.build_parser().parse_args(
-        argv + ["--output_dir", str(tmp_path), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match=item):
-        train_cli.main(args)
+    """The flags of ROADMAP queue A ``item`` are ported now: ``check_flags``
+    accepts them, their help no longer names the item, and the config
+    carries them (``fed.lockstep``, ``model.remat_blocks``)."""
+    parser = train_cli.build_parser()
+    args = parser.parse_args(argv + ["--output_dir", str(tmp_path), "--device", "cpu"])
+    train_cli.check_flags(args)
+    assert item not in parser.format_help()
+    cfg = train_cli.build_config(args)
+    assert (cfg.fed.lockstep, cfg.model.remat_blocks) == (
+        (2, False) if "--lockstep" in argv else (1, True))
 
 
 @pytest.mark.parametrize("argv,rounds_left", [
@@ -258,6 +265,27 @@ def test_chip_smoke_paths_phase_rehearsed_on_cpu(smoke_root):
                                      batch=8, local_epochs=1, eval_batch=16)
     assert list(by_part) == ["7a_cached_spreadout", "7b_resume", "7c_fc_mining",
                              "7d_plain"]
+    assert all(v == NO_LAUNCHES for v in by_part.values())
+
+
+def test_chip_smoke_lockstep_phase_rehearsed_on_cpu(tmp_path):
+    """The smoke's phase 11 at toy size on the CPU: --lockstep 2 over 3
+    clients (groups [0, 1] and [2 + a pad]) for 2 rounds with its checks
+    (the lockstep and group lines, exports, local_log.txt, a changed global
+    model), the cached step with --remat, the plain objective, then the
+    step checks (sphnet20, and iresnet18 with --remat, against sequential
+    steps) and the step timings at K = 1, 2, 4 and 4 with --remat; no
+    launch is counted here."""
+    root = str(tmp_path / "lockstep")
+    chip_smoke.write_fl_split(root, 3, IDS, imgs_per_id=8, pub_ids=6, pub_imgs=5,
+                              size=IMG, seed=0, veri_imgs=6)
+    chip_smoke.write_bin(os.path.join(root, "val", "agedb_30.bin"), n_pairs=40,
+                         size=IMG, seed=1)
+    by_part = chip_smoke.phase_lockstep(
+        root, 3, IDS, step_net="sphnet20", check_net="iresnet18", step_image=IMG,
+        step_batch=8, device="cpu", network="toy", embedding=16, image_size=IMG,
+        batch=8, local_epochs=1, eval_batch=16)
+    assert list(by_part) == ["11a", "11b", "11c"]
     assert all(v == NO_LAUNCHES for v in by_part.values())
 
 

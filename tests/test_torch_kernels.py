@@ -263,3 +263,26 @@ def test_synth_gen_kernel_combined_batch_bitwise_equal_to_plain():
     assert got.shape == (256, 112, 112, 3)
     assert int((got.cpu() != want).sum()) == 0
     np.testing.assert_array_equal(labels, want_labels)
+
+
+@pytest.mark.cuda
+def test_lockstep_step_matches_sequential_on_card():
+    """The K=2 lockstep step (sphnet20, bf16 trunk, batch 32 at 112x112) on
+    the card against two sequential steps from the same state: every loss
+    term, the updated weights and the BN statistics within the smoke's
+    bound (``chip_smoke.LOCKSTEP_TOL_FACTOR`` x the sequential step's
+    distance from the same step in fp32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the lockstep step is checked on the card")
+    import chip_smoke
+    from fedfr_tpu_torch import train as train_cli
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    args = train_cli.build_parser().parse_args(chip_smoke.round_args(
+        "unused", 2, 100, network="sphnet20"))
+    cfg = train_cli.build_config(args)
+    m = chip_smoke.step_members(cfg, "sphnet20", 2, 112, 32, 200, torch.device("cuda"),
+                                seed=3)
+    out = chip_smoke.compare_lockstep_step(cfg, m, False, "sphnet20 card test")
+    assert all(out["max_abs_diff"][q] <= out["tol"][q] for q in out["tol"])

@@ -166,3 +166,29 @@ def test_unported_options_raise(option, tiny_root):
     server = Server(cfg, AllClientData(cfg))
     assert len(server.clients) == 2
     assert (server.pretrained_fc is None) == (option == "plain")
+
+
+def test_check_flags_accepts_lockstep_and_remat():
+    """``--lockstep 2`` and ``--remat`` (ROADMAP queue A item 13) pass the
+    training CLI's flag check, alone and together."""
+    from fedfr_tpu_torch import train as train_cli
+
+    parser = train_cli.build_parser()
+    for argv in (["--lockstep", "2"], ["--remat"], ["--lockstep", "2", "--remat"]):
+        train_cli.check_flags(parser.parse_args(argv))
+
+
+def test_client_parallel_imports_no_jax_and_no_fedfr_tpu():
+    """``parallel/client_parallel.py``, imported alone in a fresh
+    interpreter, names and loads no jax and nothing of ``fedfr_tpu``."""
+    path = PORT / "parallel" / "client_parallel.py"
+    tree = ast.parse(path.read_text(), filename=str(path))
+    assert [m for m, _ in _imports(tree) if _forbidden(m)] == []
+    code = ("import json, sys\n"
+            "import fedfr_tpu_torch.parallel.client_parallel\n"
+            "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                         capture_output=True, text=True, timeout=120)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "fedfr_tpu_torch.parallel.client_parallel" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []

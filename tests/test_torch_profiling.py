@@ -140,11 +140,13 @@ def test_cli_profile_spans_and_memory_line(tmp_path):
 
 
 def test_check_flags_refuses_only_item_13():
+    """Item 13 (``--lockstep``, ``--remat``) is ported: ``check_flags``
+    refuses no flag of the repository's train.py any more."""
     parser = train_cli.build_parser()
-    train_cli.check_flags(parser.parse_args(["--profile"]))
-    for argv in (["--lockstep", "2"], ["--remat"]):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            train_cli.check_flags(parser.parse_args(argv))
+    assert train_cli.UNPORTED == {}
+    for argv in (["--profile"], ["--lockstep", "2"], ["--remat"],
+                 ["--lockstep", "4", "--remat", "--cache_contrastive"]):
+        train_cli.check_flags(parser.parse_args(argv))
 
 
 # ------------------------------------------------------------------ FLOPs
