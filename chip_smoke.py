@@ -1,6 +1,8 @@
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase, on one card
+    python3 chip_smoke.py --phase 12   # phases 1, 2 and 12, on every card
+    python3 chip_smoke.py --phase 12g  # phases 1, 2 and 12g alone
 
 Phases, in order (any failure raises and the script exits non-zero):
 
@@ -152,9 +154,9 @@ Phases, in order (any failure raises and the script exits non-zero):
    IDs x 8 images written like phase 4's data (its own public set, veri
    set and .bin), each part's launch counts set to 0 before its rounds and
    read after:
-   11a  2 rounds, groups [c0, c1] and [c2 + a pad slot]: one mining launch
-        per real client per round (none for the pad), one ROC launch per
-        candidate per round plus the baselines, the "client-parallel
+   11a  1 round, groups [c0, c1] and [c2 + a pad slot]: one mining launch
+        per real client (none for the pad), one ROC launch per candidate
+        plus the baselines, the "client-parallel
         ... lockstep 2 (branch objective)" line, one "parallel group"
         line per group and epoch, a loss line per round, a changed and
         finite global model, local_log.txt and the exports as phase 4.
@@ -170,10 +172,45 @@ Phases, in order (any failure raises and the script exits non-zero):
         the lockstep step at K = 2, 4 and 4 with --remat (CUDA events over
         a steady window); one conv layer of each trunk stage for 2 clients
         as separate convs, one grouped conv and the stacked conv leaf.
+12. mesh — the round on every GPU of the machine, or on a one-GPU machine
+   over two shards of ``cuda:0`` (a mesh may name a device twice);
+   ``mesh_devices=`` names them:
+   12f  each kernel launched on the mesh's last device leaves
+        ``torch.cuda.current_device()`` as it was;
+   12a  the ROC at 4,000 x 160,000 x 512 split over the data axis, bit for
+        bit the one-shard kernel's histogram (spread unit rows); ms per
+        shard, for the sharded whole and for one shard; launches per device;
+   12b  the data-axis embed of ``synth:public_imgs=61440`` at batch 512:
+        images/s beside one device's, the largest difference per row from
+        the one-device features within MESH_TOL_FACTOR x the bf16 trunk's
+        own distance from fp32 (the first 4,096 images);
+   12g  each card's busy share (torch.profiler, the union of its kernel and
+        copy intervals over the window) while this one process drives the
+        mesh: one data-axis embed pass over 6,144 of 12b's images and 4
+        dispatches of the mesh round's training (one stacked step of one
+        seeded member at batch 256 on every slot's card in turn), each
+        beside the same work on one device; ms per client-step of both
+        (``--phase 12g`` alone: 12,288 images, 6 dispatches);
+   12c  run.sh's round over the mesh through the CLI's setup, run_round and
+        finish, 2 x devices + 1 clients x 100 IDs x 8 images (so pad
+        slots), 1 local epoch then 4, 2 rounds, with ``--HN_threshold -1``
+        (every public image mined, so that no near-threshold score can
+        move a client's batches); then the same clients on one device at
+        ``--lockstep`` = devices, in bf16 and with the trunk in fp32: the
+        losses and the aggregate within MESH_TOL_FACTOR x the one-device
+        round's own bf16-vs-fp32 distance; the "client-parallel training
+        over N devices" line, the launches (ROC: one a shard, by device),
+        local_log.txt, the exports, the span report and memory lines;
+   12d  one round each of --cache_contrastive and the plain objective over
+        the mesh;
+   12e  ms per client-step (the local-train span over the client-steps
+        run, pad slots included) of the mesh and the one-device round, and
+        each device's peak memory.
 
 The line before the last is a JSON object with every hand-written kernel
-(its ``launches`` summed over phases 4-11, and by phase, 7a-7d apart, 11a-11c
-together); the last line is the device record.  Widths are the reference's (sphere64 and iresnet100, E=512,
+(its ``launches`` summed over phases 4-12, and by phase, 7a-7d apart, 11a-11c
+and 12c-12d together); the last line is the device record.  ``--phase 12``
+prints no kernel line.  Widths are the reference's (sphere64 and iresnet100, E=512,
 112x112, batch 256); counts are cut:
   * (phases 4-7; phase 8 runs the reference's data, cut as listed there)
     2 clients x 100 IDs x 8 train images (reference: 40 clients x 100 IDs);
@@ -193,8 +230,12 @@ together); the last line is the device record.  Widths are the reference's (sphe
   * (phase 10) the images cut from the protocol's 469,375 to 100,000
     (every template keeps at least one; ~3.8 GB of cache); the templates,
     pairs and 1:n lists at the protocol's counts;
-  * (phase 11) 3 clients x 100 IDs x 8 images; 1 local epoch then 4, 2
-    rounds for 11a, 1 round for 11b and 11c.
+  * (phase 11) 3 clients x 100 IDs x 8 images; 1 local epoch, 1 round
+    for each of 11a-11c (12c runs two lockstep rounds);
+  * (phase 12) 2 x devices + 1 clients x 100 IDs x 8 images, a 128-image
+    public set (64 IDs x 2), 4 veri images an ID; 1 local epoch then 4, 2
+    rounds for 12c, 1 round each for 12d; 12b 61,440 of 420,671 public
+    images.
 """
 
 from __future__ import annotations
@@ -234,6 +275,7 @@ from fedfr_tpu_torch.ops._build import build_kernels, build_seconds, ptxas_info
 from fedfr_tpu_torch.ops.roc_histogram import tpr_at_fpr_table
 from fedfr_tpu_torch.ops.threefry import prng_key
 from fedfr_tpu_torch.parallel import client_parallel
+from fedfr_tpu_torch.parallel import mesh as mesh_mod
 from fedfr_tpu_torch.parallel.fedavg import stack_trees
 from fedfr_tpu_torch.parallel.partial_fc import num_sampled
 from fedfr_tpu_torch.utils.checkpoint import RoundCheckpointer
@@ -305,9 +347,10 @@ SINGLE_PATTERN = re.compile(r"1:1 at Epoch : (-?\d+)$")
 
 
 def zero_launches() -> None:
-    """Every kernel's launch count set to 0."""
+    """Every kernel's launch count set to 0 (the ROC's by device too)."""
     for mod, attr in KERNEL_COUNTERS.values():
         setattr(mod, attr, 0)
+    roc_hist_mod.roc_hist_launches_by_device.clear()
 
 
 def read_launches() -> dict:
@@ -363,15 +406,16 @@ def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
                          "needs an NVIDIA GPU")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    cards = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, check=True).stdout.strip().splitlines()
+    smi = cards[0]
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("device", name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), torch=torch.__version__,
-        cuda=torch.version.cuda)
+        cuda=torch.version.cuda, cards=json.dumps(cards))
     return smi
 
 
@@ -649,7 +693,8 @@ def phase_roc(n: int, t: int, e: int) -> dict:
     with sm_clocks("roc kernel spread, 20 launches back to back x 3"):
         cuda_ms(lambda: roc_hist_mod.roc_histogram(feats, labels, t), 3,
                 "roc kernel spread, batched", batch=20)
-    copy_ms = cuda_ms(lambda: roc_hist_mod.kernel_operand(feats, cfg["bn"], cfg["bk"]),
+    copy_ms = cuda_ms(lambda: roc_hist_mod.kernel_operand(feats[:t], feats, cfg["bn"],
+                                                          cfg["bk"]),
                       7, "roc K-major copy alone")
     # the plain version and the library route on the spread case
     plain_ms = cuda_ms(lambda: roc_hist_mod.roc_histogram_plain(feats, labels, t),
@@ -1339,13 +1384,13 @@ CACHE_RE = re.compile(r"contrastive caches of (\d+) imgs built in (\S+) s")
 RESTORE_RE = re.compile(r"resumed at round (\d+) \(restore (\S+) s\)")
 
 
-def drive(argv: list, on_setup=None, tag: str = "paths"):
-    """The training CLI's setup, rounds and finish (as its main runs them),
-    with both kernels' launch counts set to 0 just before the rounds and
-    read just after; ``on_setup(run)`` runs between setup and the rounds;
-    the per-round lines are logged under ``tag``.
-    Returns (run, the rounds' records, launches, the log's text)."""
-    run = train_cli.setup(train_cli.build_parser().parse_args(argv))
+def drive(argv: list, on_setup=None, tag: str = "paths", devices=None):
+    """The training CLI's setup (on ``devices``, default the CLI's), rounds
+    and finish (as its main runs them), with the kernels' launch counts set
+    to 0 just before the rounds and read just after; ``on_setup(run)`` runs
+    between setup and the rounds; the per-round lines are logged under
+    ``tag``.  Returns (run, the rounds' records, launches, the log's text)."""
+    run = train_cli.setup(train_cli.build_parser().parse_args(argv), devices)
     if on_setup is not None:
         on_setup(run)
     sync = torch.cuda.synchronize if run.cfg.runtime.device == "cuda" else (lambda: None)
@@ -2323,7 +2368,7 @@ def phase_lockstep(root: str, n_clients: int, ids: int, step_net: str = "sphnet"
                    check_net: str = "iresnet100", step_image: int = 112,
                    step_batch: int = 256, **round_kw) -> dict:
     """Phase 11: the lockstep round through the training CLI (11a
-    ``--lockstep 2``, 2 rounds; 11b with ``--cache_contrastive --remat``,
+    ``--lockstep 2``, 1 round; 11b with ``--cache_contrastive --remat``,
     1 round; 11c the plain objective, 1 round), each part's launches
     counted over its rounds alone; then 11d, the lockstep step on one
     seeded batch per member: K=2 against two sequential steps (``step_net``,
@@ -2361,24 +2406,24 @@ def phase_lockstep(root: str, n_clients: int, ids: int, step_net: str = "sphnet"
         before.update({k: v.detach().clone()
                        for k, v in run.server.global_net.state_dict().items()})
 
-    # 11a: --lockstep 2, 2 rounds: one mining launch per real member and
-    # round (the pad slot prepares nothing), the ROC per candidate and round
-    # plus round 0's baselines, the exports and local_log.txt
-    run, history, launches, text = drive(argv_for("run_lockstep", 2, ["--lockstep", "2"]),
+    # 11a: --lockstep 2, 1 round (phase 12c runs two lockstep rounds): one
+    # mining launch per real member (the pad slot prepares nothing), the
+    # ROC per candidate plus the baselines, the exports and local_log.txt
+    run, history, launches, text = drive(argv_for("run_lockstep", 1, ["--lockstep", "2"]),
                                          on_setup=keep_start, tag="lockstep")
     server, out = run.server, run.cfg.runtime.output_dir
     cands = server.local_candidates
-    expect_launches(run, launches, {"max_sim": n_clients * 2, "roc_hist": len(cands) * 3},
+    expect_launches(run, launches, {"max_sim": n_clients, "roc_hist": len(cands) * 2},
                     "11a")
-    check_lines(text, "branch", [0, 1], [h["local_epochs"] for h in history], groups)
+    check_lines(text, "branch", [0], [h["local_epochs"] for h in history], groups)
     after = server.global_net.state_dict()
     changed = max(float((after[k].float() - v.float()).abs().max())
                   for k, v in before.items() if v.is_floating_point())
     finite = all(bool(torch.isfinite(v).all()) for v in after.values() if v.is_floating_point())
     if not (finite and changed > 0):
         raise AssertionError(f"11a: global model finite={finite} max change={changed}")
-    check_local_logs(out, cands, 2)
-    check_exports(out, 2, cands)
+    check_local_logs(out, cands, 1)
+    check_exports(out, 1, cands)
     log("lockstep", part="11a", groups=groups, global_max_change=changed)
     by_part["11a"] = launches
     figures["11a"] = {"round_s": [h["seconds"] for h in history],
@@ -2438,7 +2483,421 @@ def phase_lockstep(root: str, n_clients: int, ids: int, step_net: str = "sphnet"
     return by_part
 
 
-def main() -> None:
+# ---------------------------------------------------------------- phase 12
+
+MESH_RE = re.compile(r"client-parallel training over (\d+) devices x lockstep (\d+) "
+                     r"\((branch|plain) objective\)")
+# 12b and 12c hold the mesh's results to the one-device ones with the bf16
+# trunk.  Only the order of the trunk's sums differs between them (a batch
+# split into blocks, a stacked step of another width), and each carries
+# the bf16 trunk's rounding against the same computation in fp32, so as in
+# phase 11d the bound is MESH_TOL_FACTOR x the one-device run's own
+# distance from fp32, measured in the same run (12b: the features of the
+# first images; 12c: every client's loss and the aggregate after the two
+# rounds).  A net without a bf16 trunk (the toy net) is held to
+# MESH_FP32_TOL.
+MESH_TOL_FACTOR = 3.0
+MESH_FP32_TOL = 1e-5
+BUSY_SPEC = "synth:public_imgs=61440"
+
+
+def mesh_devices(device: str = "cuda") -> list:
+    """Phase 12's devices: every GPU when the machine has more than one,
+    else two shards of the one device (``cuda:0`` or the CPU)."""
+    if device == "cuda" and torch.cuda.device_count() > 1:
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    dev = torch.device("cuda", 0) if device == "cuda" else torch.device("cpu")
+    return [dev, dev]
+
+
+def wall_ms(fn, devices: list, iters: int = 3) -> float:
+    """Median host-clock ms of ``fn()``, each run ending with every device
+    synchronized (a span over several cards)."""
+    times = []
+    for _ in range(iters):
+        mesh_mod.synchronize(devices)
+        t = time.perf_counter()
+        fn()
+        mesh_mod.synchronize(devices)
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
+def mesh_roc(devices: list, n: int, t: int, e: int) -> dict:
+    """12a: the ROC at t x n x e over the data mesh against the one-shard
+    kernel's histogram of the same input, bit for bit (spread unit rows:
+    not dyadic, no tolerance); ms per shard (its copy included), for the
+    sharded whole and for one shard of everything; launches per device."""
+    home = devices[0]
+    gen = torch.Generator(device=home).manual_seed(16)
+    feats = torch.randn(n, e, device=home, generator=gen)
+    feats = (feats / feats.norm(dim=1, keepdim=True)).contiguous()
+    labels = (torch.arange(n, device=home, dtype=torch.int32) // 40).contiguous()
+    m = mesh_mod.data_mesh(devices=devices)
+    saved = (roc_hist_mod.roc_hist_launches, dict(roc_hist_mod.roc_hist_launches_by_device))
+    roc_hist_mod.roc_hist_launches_by_device.clear()
+    whole = roc_hist_mod.roc_histogram(feats, labels, t)
+    roc_hist_mod.roc_hist_launches_by_device.clear()
+    sharded = roc_histogram_mod.pairwise_roc_histogram_sharded(m, feats, labels, t)
+    mesh_mod.synchronize(devices)
+    by_device = dict(roc_hist_mod.roc_hist_launches_by_device)
+    if not torch.equal(sharded, whole):
+        raise AssertionError(f"12a: sharded ROC differs from the one-shard histogram in "
+                             f"{int((sharded != whole).sum())} bins")
+    step = -(-n // len(devices))
+    shard_ms = []
+    for d, dev in enumerate(devices):
+        args = (feats[:t].to(dev), labels[:t].to(dev),
+                feats[d * step:(d + 1) * step].to(dev), labels[d * step:(d + 1) * step].to(dev),
+                d * step)
+        shard_ms.append(wall_ms(lambda: roc_hist_mod.roc_histogram_range(*args), [dev]))
+    whole_ms = wall_ms(lambda: roc_hist_mod.roc_histogram(feats, labels, t), [home])
+    sharded_ms = wall_ms(lambda: roc_histogram_mod.pairwise_roc_histogram_sharded(
+        m, feats, labels, t), devices)
+    roc_hist_mod.roc_hist_launches = saved[0]
+    roc_hist_mod.roc_hist_launches_by_device.clear()
+    roc_hist_mod.roc_hist_launches_by_device.update(saved[1])
+    out = {"shape": f"{t}x{n}x{e}", "bitwise_equal": True, "pairs": int(whole.sum()),
+           "launches_by_device": by_device, "shard_ms": shard_ms,
+           "sharded_ms": sharded_ms, "one_shard_ms": whole_ms}
+    log("mesh", part="12a", **out)
+    return out
+
+
+def mesh_embed(devices: list, spec: str, batch: int, network: str, embedding: int,
+               image_size: int, sample: int) -> dict:
+    """12b: the data-axis embed of a ``synth:`` public set at ``batch``
+    against the one-device embed of the same net (seeded random weights):
+    images/s of each (host clock, every device synchronized; in turns one,
+    mesh, mesh, one), the largest difference per row of the l2-normalized
+    features, and its bound (MESH_TOL_FACTOR x the one-device bf16 trunk's
+    distance from fp32 over the first ``sample`` images)."""
+    home = devices[0]
+    public = synthetic.build_fl_synthetic(synthetic.parse_synth_spec(spec), home)["public"]
+    net = build_backbone(network, embedding, image_size=image_size,
+                         generator=torch.Generator().manual_seed(100)).to(home).eval()
+    layouts = {"one": mesh_mod.data_mesh(devices=[home]),
+               "mesh": mesh_mod.data_mesh(devices=devices)}
+    feats, secs = {}, {"one": [], "mesh": []}
+    for name in ("one", "mesh", "mesh", "one"):
+        mesh_mod.synchronize(devices)
+        t0 = time.perf_counter()
+        feats[name], _ = embed_mod.embed_dataset(net, public, batch, device=home,
+                                                 mesh=layouts[name])
+        mesh_mod.synchronize(devices)
+        secs[name].append(time.perf_counter() - t0)
+    diff = float((feats["mesh"] - feats["one"]).abs().amax(1).max())
+    del feats
+    sub = public.subset(np.arange(1, sample + 1))
+    ref = []
+    for bf16 in (True, False):
+        _set_bf16([net], bf16)
+        ref.append(embed_mod.embed_dataset(net, sub, batch, device=home,
+                                           mesh=layouts["one"])[0])
+    _set_bf16([net], True)
+    own = float((ref[0] - ref[1]).abs().amax(1).max())
+    tol = MESH_TOL_FACTOR * own if hasattr(net, "bf16") else MESH_FP32_TOL
+    n = len(public)
+    out = {"images": n, "batch": batch,
+           "images_per_s": {k: n / min(v) for k, v in secs.items()},
+           "seconds": secs, "max_row_diff": diff, "bf16_vs_fp32": own, "tol": tol}
+    log("mesh", part="12b", **out)
+    if not diff <= tol:
+        raise AssertionError(f"12b: sharded embed differs from one device by {diff} > {tol}")
+    return out
+
+
+def card_busy(fn, devices: list) -> dict:
+    """Runs ``fn()`` once under ``torch.profiler`` (host and device
+    activity) and returns the window's wall seconds (every device
+    synchronized at its end) and, for each card among ``devices``, the
+    share of the window it was busy: the union of its kernel, copy and
+    memset intervals over all its streams."""
+    cards = list(dict.fromkeys(d.index for d in devices if d.type == "cuda"))
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if cards:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    mesh_mod.synchronize(devices)
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        fn()
+        mesh_mod.synchronize(devices)
+        wall = time.perf_counter() - t0
+    if not cards:
+        return {"wall_s": wall, "busy_share": "not measured (no card)"}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, TRACE_FILE)
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    spans = {c: [] for c in cards}
+    for e in events:
+        if e.get("cat") in DEVICE_CATEGORIES:
+            dev = e.get("args", {}).get("device", e.get("pid"))
+            if dev in spans:
+                spans[dev].append((e["ts"], e["ts"] + e.get("dur", 0.0)))
+    share = {}
+    for dev, intervals in spans.items():
+        busy, end = 0.0, -math.inf
+        for a, b in sorted(intervals):
+            busy += max(0.0, b - max(a, end))
+            end = max(end, b)
+        share[f"cuda:{dev}"] = busy / 1e6 / wall
+    return {"wall_s": wall, "busy_share": share}
+
+
+def mesh_busy(devices: list, spec: str, images: int, steps: int, **round_kw) -> dict:
+    """12g: each card's busy share (``card_busy``) while one process drives
+    the mesh: one data-axis embed pass over the first ``images`` of the
+    ``synth:`` public set (beside the same pass on one device), and
+    ``steps`` dispatches of the mesh round's training (on every slot's
+    card in turn, one stacked step of one seeded member at the round's
+    batch, as the round issues them; beside one device's K-member step);
+    ms per client-step of both."""
+    home = devices[0]
+    network = round_kw.get("network", "sphnet")
+    embedding = round_kw.get("embedding", 512)
+    image_size = round_kw.get("image_size", 112)
+    batch = round_kw.get("batch", 256)
+    public = synthetic.build_fl_synthetic(synthetic.parse_synth_spec(spec), home)["public"]
+    public = public.subset(np.arange(1, images + 1))
+    net = build_backbone(network, embedding, image_size=image_size,
+                         generator=torch.Generator().manual_seed(100)).to(home).eval()
+    out = {"embed": {}, "step": {}}
+    for name, devs in (("mesh", devices), ("one", [home])):
+        m = mesh_mod.data_mesh(devices=devs)
+        embed_mod.embed_dataset(net, public, round_kw.get("eval_batch", 512), device=home,
+                                mesh=m)  # the replicas made, the kernels warm
+        out["embed"][name] = card_busy(lambda: embed_mod.embed_dataset(
+            net, public, round_kw.get("eval_batch", 512), device=home, mesh=m), devices)
+        out["embed"][name]["images_per_s"] = images / out["embed"][name]["wall_s"]
+    del net
+    cfg = train_cli.build_config(train_cli.build_parser().parse_args(
+        round_args("", 2, 100, **round_kw)))
+    for name, slots, k in (("mesh", devices, 1), ("one", [home], len(devices))):
+        runs = []
+        for d, dev in enumerate(slots):
+            m = step_members(cfg, network, k, image_size, batch, 64, dev, seed=31 + d)
+            runs.append(lockstep_group(cfg, m, k)[1])
+        for _ in range(2):  # warm-up
+            for run in runs:
+                run()
+
+        def dispatch():
+            for _ in range(steps):
+                for run in runs:
+                    run()
+        out["step"][name] = card_busy(dispatch, devices)
+        out["step"][name]["ms_per_client_step"] = (out["step"][name]["wall_s"] * 1e3
+                                                   / (steps * len(devices)))
+        del runs
+    if home.type == "cuda":
+        torch.cuda.empty_cache()
+    log("mesh", part="12g", **{k: json.dumps(v) for k, v in out.items()})
+    return out
+
+
+def _client_steps(history: list, k: int, batch: int) -> int:
+    """Client-steps the lockstep rounds of ``history`` ran (pad slots
+    included): per group of ``k`` sampled clients, k x the round's local
+    epochs x its longest member's batches an epoch."""
+    steps = 0
+    for rec in history:
+        sizes = rec["dataset_sizes"]
+        for g in range(0, len(sizes), k):
+            steps += k * rec["local_epochs"] * max(x // batch for x in sizes[g:g + k])
+    return steps
+
+
+def phase_mesh(root: str, devices: list, ids: int, pub_ids: int = 64,
+               roc_shape=(160_000, 4_000, 512), embed_spec: str = BUSY_SPEC,
+               embed_sample: int = 4096, busy_images: int = 6_144, **round_kw) -> dict:
+    """Phase 12: the round on every device of ``devices`` (``[d, d]`` is two
+    shards of one device): 12f each kernel launched on the last device
+    leaves the current device as it was; 12a the sharded ROC; 12b the
+    data-axis embed; 12g each card's busy share while one process drives
+    them (an embed pass, the round's training dispatches); 12c run.sh's round over the mesh through the CLI
+    (2 x devices + 1 clients, 2 rounds), then on one device at
+    ``--lockstep`` = devices, in bf16 and in fp32; 12d one round each of
+    ``--cache_contrastive`` and the plain objective over the mesh; 12e ms
+    per client-step and each device's peak memory.  Returns {part:
+    launches} of the rounds."""
+    nd, home = len(devices), devices[0]
+    on_card = home.type == "cuda"
+    log("mesh", mesh_devices=[str(d) for d in devices],
+        cards=len(dict.fromkeys(devices)))
+    by_part, figures = {}, {}
+
+    # 12f: the launchers give the caller its current device back
+    if on_card:
+        saved = read_launches()
+        last = devices[-1]
+        current = torch.cuda.current_device()
+        gen = torch.Generator(device=last).manual_seed(3)
+        x = torch.randn(300, 512, device=last, generator=gen)
+        x = x / x.norm(dim=1, keepdim=True)
+        checks = {"max_sim": lambda: max_sim_mod.max_cosine_similarity(x, x[:70].contiguous()),
+                  "roc_hist": lambda: roc_hist_mod.roc_histogram(
+                      x, torch.zeros(300, dtype=torch.int32, device=last), 50),
+                  "synth_gen": lambda: synth_gen_mod.synth_generate(
+                      *[v.to(last) for v in _synth_vectors(synthetic.build_fl_synthetic(
+                          synthetic.parse_synth_spec("synth:"), "cpu"), 8, 5)],
+                      prng_key(100), 112, 18, 4, 0.0, 8)}
+        after = {}
+        for name, fn in checks.items():
+            fn()
+            after[name] = torch.cuda.current_device()
+        torch.cuda.synchronize(last)
+        for name, (mod, attr) in KERNEL_COUNTERS.items():
+            setattr(mod, attr, saved[name])
+        log("mesh", part="12f", launched_on=str(last), current_before=current,
+            current_after=json.dumps(after))
+        if set(after.values()) != {current}:
+            raise AssertionError(f"12f: a launch on {last} moved the current device "
+                                 f"from {current}: {after}")
+
+    n, t, e = roc_shape
+    figures["12a"] = mesh_roc(devices, n, t, e)
+    figures["12b"] = mesh_embed(devices, embed_spec, round_kw.get("eval_batch", 512),
+                                round_kw.get("network", "sphnet"),
+                                round_kw.get("embedding", 512),
+                                round_kw.get("image_size", 112), embed_sample)
+    figures["12g"] = mesh_busy(devices, embed_spec, busy_images, 4, **round_kw)
+
+    # 12c: run.sh's round over the mesh, then on one device, in bf16 and fp32
+    n_clients = 2 * nd + 1
+    write_fl_split(root, n_clients=n_clients, ids=ids, imgs_per_id=8, pub_ids=pub_ids,
+                   pub_imgs=2, size=round_kw.get("image_size", 112), seed=0, veri_imgs=4)
+    write_bin(os.path.join(root, "val", "agedb_30.bin"), n_pairs=1200,
+              size=round_kw.get("image_size", 112), seed=1)
+    # every public image mined (HN_threshold -1) in 12c: two bf16 sum
+    # orders can put a score near 0.4 on either side of it, and a client's
+    # mined set, its batches and so its losses would then differ for a
+    # reason other than the mesh
+    base = round_args(root, n_clients, ids, **round_kw)
+    base[base.index("--HN_threshold") + 1] = "-1"
+    batch = int(base[base.index("--com_batch_size") + 1])
+
+    def argv_for(out_name: str, rounds: int, extra: list, drop=()) -> list:
+        argv = [a for a in base if a not in drop]
+        argv[argv.index("--output_dir") + 1] = os.path.join(root, out_name)
+        argv[argv.index("--total_round") + 1] = str(rounds)
+        return argv + extra
+
+    def mesh_line(text: str, objective: str) -> None:
+        lines = MESH_RE.findall(text)
+        if lines != [(str(nd), "1", objective)]:
+            raise AssertionError(f"training.log: client-parallel lines {lines}")
+
+    def roc_by_device(expected_total: int) -> dict:
+        got = dict(roc_hist_mod.roc_hist_launches_by_device)
+        want = {}
+        for dev in devices:
+            want[dev.index] = want.get(dev.index, 0) + expected_total // nd
+        if on_card and got != want:
+            raise AssertionError(f"ROC launches by device {got}, expected {want}")
+        return got
+
+    # every card of the machine: the CLI's own default device list
+    mesh_arg = None if devices == mesh_mod.visible_devices(home.type) else devices
+    runs = {}
+    for name, devs, extra, fp32 in (("mesh", mesh_arg, [], False),
+                                    ("one", [home], ["--lockstep", str(nd)], False),
+                                    ("one_fp32", [home], ["--lockstep", str(nd)], True)):
+        def on_setup(run, fp32=fp32):
+            if fp32:
+                s = run.server
+                _set_bf16([s.global_net, s.backbone, s.last_net], False)
+        torch.manual_seed(100)  # the toy net (the CPU rehearsal's) draws from it
+        for dev in dict.fromkeys(devices) if on_card else ():
+            torch.cuda.reset_peak_memory_stats(dev)  # the memory line's peak: this run's
+        run, history, launches, text = drive(argv_for(f"run_mesh_{name}", 2, extra),
+                                             on_setup=on_setup, tag="mesh", devices=devs)
+        cands = run.server.local_candidates
+        width = nd if name == "mesh" else 1
+        expect_launches(run, launches, {"max_sim": n_clients * 2,
+                                        "roc_hist": len(cands) * 3 * width}, f"12c {name}")
+        runs[name] = {"history": history, "state": {
+            k: v.detach().double() for k, v in run.server.global_net.state_dict().items()
+            if v.is_floating_point()}}
+        if name == "mesh":
+            mesh_line(text, "branch")
+            by_device = roc_by_device(len(cands) * 3 * nd)
+            out = run.cfg.runtime.output_dir
+            check_local_logs(out, cands, 2)
+            check_exports(out, 2, cands)
+            check_round_log(out, 2)
+            cards = {str(d) for d in devices}
+            if on_card and set(history[-1]["memory"]["devices"]) != cards:
+                raise AssertionError(f"memory line cards {history[-1]['memory']}, "
+                                     f"expected {sorted(cards)}")
+            by_part["12c"] = launches
+            figures["12c"] = {"roc_launches_by_device": by_device,
+                              "memory": history[-1]["memory"]}
+        runs[name]["local_train_s"] = history[-1]["spans"]["phase/local_train"]
+        runs[name]["round_s"] = [h["seconds"] for h in history]
+        del run
+
+    def distance(a: str, b: str) -> dict:
+        la = [x for h in runs[a]["history"] for x in h["losses"]]
+        lb = [x for h in runs[b]["history"] for x in h["losses"]]
+        sa, sb = runs[a]["state"], runs[b]["state"]
+        return {"losses": max(abs(x - y) for x, y in zip(la, lb)),
+                "aggregate": max(float((sa[k] - sb[k]).abs().max()) for k in sa)}
+
+    got, own = distance("mesh", "one"), distance("one", "one_fp32")
+    bf16_trunk = round_kw.get("network", "sphnet") != "toy"
+    tol = {q: MESH_TOL_FACTOR * v if bf16_trunk else MESH_FP32_TOL for q, v in own.items()}
+    log("mesh", part="12c", clients=n_clients, max_abs_diff=json.dumps(got),
+        bf16_vs_fp32=json.dumps(own), tol=json.dumps(tol),
+        round_s=json.dumps({k: v["round_s"] for k, v in runs.items()}))
+    bad = {q: (d, tol[q]) for q, d in got.items() if not d <= tol[q]}
+    if bad:
+        raise AssertionError(f"12c: the mesh round differs from the one-device round "
+                             f"beyond the bound: {bad}")
+    figures["12c"].update({"max_abs_diff": got, "bf16_vs_fp32": own, "tol": tol})
+
+    # 12e: ms per client-step (pad slots included) and each device's peak
+    figures["12e"] = {}
+    for name in ("mesh", "one"):
+        steps = _client_steps(runs[name]["history"], nd, batch)
+        figures["12e"][name] = {
+            "client_steps": steps,
+            "ms_per_client_step": runs[name]["local_train_s"] * 1e3 / max(steps, 1),
+            "round_s": runs[name]["round_s"],
+            "peak_mb": runs[name]["history"][-1]["memory"].get("devices")}
+        log("mesh", part="12e", run=name, **figures["12e"][name])
+
+    # 12d: the cached MOON step and the plain objective over the mesh
+    run, history, launches, text = drive(argv_for("run_mesh_cached", 1,
+                                                  ["--cache_contrastive"]),
+                                         tag="mesh", devices=mesh_arg)
+    cands = run.server.local_candidates
+    if len(CACHE_RE.findall(text)) != n_clients:
+        raise AssertionError(f"12d: {len(CACHE_RE.findall(text))} cache builds")
+    mesh_line(text, "branch")
+    expect_launches(run, launches, {"max_sim": n_clients,
+                                    "roc_hist": len(cands) * 2 * nd}, "12d cached")
+    roc_by_device(len(cands) * 2 * nd)
+    by_part["12d_cached"] = launches
+    del run
+    run, history, launches, text = drive(argv_for(
+        "run_mesh_plain", 1, ["--batch_size", "64"], drop=("--add_pretrained_data",)),
+        tag="mesh", devices=mesh_arg)
+    cands = run.server.local_candidates
+    mesh_line(text, "plain")
+    expect_launches(run, launches, {"max_sim": 0, "roc_hist": len(cands) * 2 * nd},
+                    "12d plain")
+    roc_by_device(len(cands) * 2 * nd)
+    by_part["12d_plain"] = launches
+    del run
+    if on_card:
+        torch.cuda.empty_cache()
+    log("mesh", figures=json.dumps(figures, default=str))
+    return by_part
+
+
+def main(argv: list) -> None:
     seconds = {}
 
     def timed(name, fn, *args, **kwargs):
@@ -2447,8 +2906,30 @@ def main() -> None:
         seconds[name] = round(time.perf_counter() - t0, 2)
         return out
 
+    if argv not in ([], ["--phase", "12"], ["--phase", "12g"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--phase 12 | --phase 12g]")
     smi = timed("1_device", phase_device)
     timed("2_build", phase_build)
+    if argv == ["--phase", "12g"]:
+        timed("12g_busy", mesh_busy, mesh_devices(), BUSY_SPEC, 12_288, 6)
+        log("smoke", phase_seconds=json.dumps(seconds))
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
+    if argv:
+        # phase 12 alone, on every GPU of the machine
+        with tempfile.TemporaryDirectory(prefix="fedfr_smoke_") as root:
+            timed("12_mesh", phase_mesh, os.path.join(root, "mesh"), mesh_devices(),
+                  ids=100, local_epochs=1)
+        log("smoke", phase_seconds=json.dumps(seconds),
+            total_s=round(sum(seconds.values()), 2))
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
     mining = timed("3_max_sim", phase_mining, 420_671, 6_500, 512)
     roc = timed("3_roc_hist", phase_roc, 160_000, 4_000, 512)
     synth = timed("3_synth_gen", phase_synth_gen, REF_PUBLIC)
@@ -2482,12 +2963,16 @@ def main() -> None:
             os.path.join(root, "run"), [0, 1])
         lock_root = os.path.join(root, "lockstep")
         timed("11_data", write_round_data, lock_root, n_clients=3, ids=100, size=112)
-        # 1 local epoch, then 4 (as phase 4): round 0 at random weights
-        # mines every public image, so its epochs are the phase's longest
+        # 1 local epoch: round 0 at random weights mines every public
+        # image, so its epochs are the phase's longest
         parts = timed("11_lockstep", phase_lockstep, lock_root, n_clients=3, ids=100,
                       local_epochs=1)
         by_phase["lockstep"] = {k: sum(p[k] for p in parts.values())
                                 for k in KERNEL_COUNTERS}
+        # 1 local epoch, then 4: two rounds over two shards of the card
+        parts = timed("12_mesh", phase_mesh, os.path.join(root, "mesh"), mesh_devices(),
+                      ids=100, local_epochs=1)
+        by_phase["mesh"] = {k: sum(p[k] for p in parts.values()) for k in KERNEL_COUNTERS}
     log("smoke", phase_seconds=json.dumps(seconds),
         total_s=round(sum(seconds.values()), 2))
     for record in (mining, roc, synth):
@@ -2502,4 +2987,6 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    main(sys.argv[1:])

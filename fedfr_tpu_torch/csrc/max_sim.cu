@@ -54,8 +54,9 @@
 //
 // Interface: a plain C function (built with nvcc into a shared library and
 // called through ctypes) that encodes the two TMA tensor maps, launches on
-// the caller's stream, does not synchronise, and returns cudaGetLastError(),
-// or a negative code of its own (see below).  The tensor maps are encoded
+// the caller's stream on `device`, does not synchronise, leaves the caller's
+// current device as it found it, and returns cudaGetLastError(), or a
+// negative code of its own (see below).  The tensor maps are encoded
 // with cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPointByVersion
 // so the build needs no -lcuda.
 
@@ -337,6 +338,30 @@ bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int rows,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// Makes `device` current for a launch and gives the caller its own current
+// device back on every return path: PyTorch reads the thread's current
+// device for every allocation and synchronize that names no index.
+class DeviceGuard {
+ public:
+  explicit DeviceGuard(int device) : err_(cudaGetDevice(&prev_)) {
+    if (err_ != cudaSuccess) {
+      prev_ = -1;
+      return;
+    }
+    if (prev_ != device) err_ = cudaSetDevice(device);
+  }
+  ~DeviceGuard() {
+    if (prev_ >= 0) cudaSetDevice(prev_);
+  }
+  DeviceGuard(const DeviceGuard&) = delete;
+  DeviceGuard& operator=(const DeviceGuard&) = delete;
+  cudaError_t error() const { return err_; }
+
+ private:
+  int prev_ = -1;
+  cudaError_t err_;
+};
+
 }  // namespace
 
 // pub (n_pub, width) and loc (n_loc, width): bf16, row-major, 16-byte
@@ -345,7 +370,8 @@ extern "C" int fedfr_max_sim(const void* pub, const void* loc, float* out,
                              int n_pub, int n_loc, int width, int device,
                              void* stream) {
   if (width % BK != 0 || width < BK || width > MAX_WIDTH) return ERR_WIDTH;
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_pub == 0) return 0;
   const EncodeTiled encode = encoder();

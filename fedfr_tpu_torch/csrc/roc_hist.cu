@@ -7,16 +7,24 @@
 // pairwise_roc_histogram).
 //
 // What it computes.  feats (N, E) fp32 with the T target rows first, labels
-// (N,) int32.  For every pair i < T, i < j < N:
+// (N,) int32.  For every pair i < T, j0 <= j < j1, i < j (global row
+// indices, the counterpart of roc_histogram_pair's gi/gj operands):
 //     sim = <feats[i], feats[j]>            IEEE fp32 fmaf, summed in k order
 //     bin = clamp((int)((sim + 1) * 1000), 0, 2000)   two rounded steps,
 //                                                      truncated toward zero
 //     out[2 * bin + (labels[i] != labels[j])] += 1
 // out is the interleaved [pos, neg] histogram of 2 x 2001 int64 counts.
-// The kernel reads the features K-major: featsT (E_pad, N_pad), the
-// wrapper's zero-padded transposed copy (featsT[k][r] = feats[r][k]).  Zero
-// columns past E add exact zeros at the end of each sum; rows past N and T
-// are masked, so padding changes no count.
+// [j0, j1) = [0, N) is the whole histogram; a mesh gives each device a
+// contiguous j-range of its own (ops/roc_histogram.py::
+// pairwise_roc_histogram_sharded), and since each pair's sum is the same
+// fmaf chain wherever its rows lie, the ranges' histograms add up bit for
+// bit to the whole.  The kernel reads the features K-major: featsT (E_pad,
+// n_cols), the wrapper's zero-padded transposed copy of the T target rows
+// (columns 0..) and of the range's rows (columns b_col.., b_col past the
+// targets' padding): featsT[k][c] = feats[row of column c][k].  It holds the
+// targets and the range only, not all N rows.  Zero columns past E add
+// exact zeros at the end of each sum; rows past the range and T are masked,
+// so padding changes no count.
 //
 // What bounds it on an H100.  2 * E FFMA-operations per pair on the SIMT
 // cores (TF32 tensor cores would move pairs by about one bin): at the
@@ -29,10 +37,11 @@
 // VMEM and carries the count block across its sequential grid.  CUDA blocks
 // run in parallel, so here:
 //   * block (x, y) owns BM target rows (x) and a contiguous range of BN-row
-//     j-tiles (y); j-tiles wholly at or below the diagonal are skipped and
-//     the i < j guard applies inside the tile.  The wrapper sizes the split
-//     from the kernel's own occupancy (fedfr_roc_hist_config) so that the
-//     grid is one wave: a second, partial wave nearly doubles the time;
+//     j-tiles of the j-range (y); j-tiles wholly at or below the diagonal
+//     are skipped and the i < j guard applies inside the tile.  The wrapper
+//     sizes the split from the kernel's own occupancy
+//     (fedfr_roc_hist_config) and the range's own j-tiles, so that the grid
+//     is one wave: a second, partial wave nearly doubles the time;
 //   * staging: the block walks its (j-tile, K-slice) sequence as one stream
 //     through a ring of STAGES shared-memory buffers.  Each buffer holds
 //     one BK-wide K-slice of the target tile and of the j-tile, already in
@@ -58,8 +67,8 @@
 //     thread and tile), so same-bin counts are not aggregated within a warp
 //     first;
 //   * the block flushes once, with a 64-bit global atomicAdd per non-zero bin.
-// A block's int32 counters hold at most BM x N_pad pairs; the wrapper keeps
-// that below 2^31.  Dynamic shared memory: STAGES x 32,768 B of ring +
+// A block's int32 counters hold at most BM x (the range's rows, padded)
+// pairs; the wrapper keeps that below 2^31.  Dynamic shared memory: STAGES x 32,768 B of ring +
 // 16,008 B of histogram + 512 B of the block's labels = 114,824 B, so 2
 // blocks per SM, as the 128 registers a thread that __launch_bounds__
 // allows.
@@ -67,8 +76,9 @@
 // Interface: plain C functions (built with nvcc into a shared library and
 // called through ctypes).  fedfr_roc_hist_config reports the tile sizes and
 // how many blocks of the kernel, as built, fit on one SM.  fedfr_roc_hist
-// launches on the caller's stream, does not synchronise, and returns
-// cudaGetLastError().  The caller zeroes `out`.
+// launches on the caller's stream on `device`, does not synchronise, and
+// returns cudaGetLastError().  Both leave the caller's current device as
+// they found it.  The caller zeroes `out`.
 
 #include <cuda_runtime.h>
 
@@ -90,7 +100,6 @@ constexpr int B_FLOATS = BK * BN;  //            [BK][BN] j-rows
 constexpr int STAGE_FLOATS = A_FLOATS + B_FLOATS;
 constexpr int SMEM_BYTES = (STAGES * STAGE_FLOATS + HIST + BM) * 4;
 
-static_assert(BN % BM == 0, "the diagonal skip assumes BM divides BN");
 static_assert(TM == 8 && TN == 8, "micro-tiles are two 4-wide halves");
 static_assert(A_FLOATS % (4 * THREADS) == 0 && B_FLOATS % (4 * THREADS) == 0,
               "each thread copies whole 16-byte vectors of each operand");
@@ -126,33 +135,34 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Start the copies of K-slice k0 of the target tile (featsT columns i0..)
-// and of the j-tile (columns j0..) into one ring stage.  Vector v of an
+// Start the copies of K-slice k0 of the target tile (featsT columns a0..)
+// and of the j-tile (columns b0..) into one ring stage.  Vector v of an
 // operand is row v / (cols / 4), float4 v % (cols / 4) of its [BK][cols]
 // slice, so that consecutive threads copy consecutive 16 bytes.
 __device__ __forceinline__ void load_slice(float* stage,
                                            const float* __restrict__ featsT,
-                                           int n_pad, int i0, int j0, int k0,
+                                           int n_cols, int a0, int b0, int k0,
                                            int tid) {
 #pragma unroll
   for (int q = 0; q < A_FLOATS / (4 * THREADS); ++q) {
     const int v = q * THREADS + tid;
     const int r = v / (BM / 4), c = (v % (BM / 4)) * 4;
-    cp_async16(stage + r * BM + c, featsT + (size_t)(k0 + r) * n_pad + i0 + c);
+    cp_async16(stage + r * BM + c, featsT + (size_t)(k0 + r) * n_cols + a0 + c);
   }
 #pragma unroll
   for (int q = 0; q < B_FLOATS / (4 * THREADS); ++q) {
     const int v = q * THREADS + tid;
     const int r = v / (BN / 4), c = (v % (BN / 4)) * 4;
     cp_async16(stage + A_FLOATS + r * BN + c,
-               featsT + (size_t)(k0 + r) * n_pad + j0 + c);
+               featsT + (size_t)(k0 + r) * n_cols + b0 + c);
   }
 }
 
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-roc_hist_kernel(const float* __restrict__ featsT, const int* __restrict__ labels,
-                unsigned long long* __restrict__ out, int n, int t, int n_pad,
-                int k_slices, int j_tiles, int splits) {
+roc_hist_kernel(const float* __restrict__ featsT,
+                const int* __restrict__ labels_i, const int* __restrict__ labels_j,
+                unsigned long long* __restrict__ out, int t, int m, int j0,
+                int b_col, int n_cols, int k_slices, int j_tiles, int splits) {
   extern __shared__ __align__(16) float smem[];
   float* ring = smem;
   int* hist = reinterpret_cast<int*>(smem + STAGES * STAGE_FLOATS);
@@ -165,14 +175,16 @@ roc_hist_kernel(const float* __restrict__ featsT, const int* __restrict__ labels
 
   for (int b = tid; b < HIST; b += THREADS) hist[b] = 0;
   for (int r = tid; r < BM; r += THREADS)
-    lab_i[r] = i0 + r < t ? __ldg(labels + i0 + r) : 0;
+    lab_i[r] = i0 + r < t ? __ldg(labels_i + i0 + r) : 0;
 
-  // j-tile jt holds a pair with j > i for some i of this block iff
-  // jt * BN + BN - 1 > i0, i.e. jt >= i0 / BN (BM divides BN)
-  const int jt_first = i0 / BN;
-  const long long span = j_tiles - jt_first;
-  const int jt_begin = jt_first + (int)(span * blockIdx.y / splits);
-  const int jt_end = jt_first + (int)(span * (blockIdx.y + 1) / splits);
+  // j-tile jt (the range's rows jt * BN.., global j0 + jt * BN..) holds a
+  // pair with j > i for some i >= i0 of this block iff
+  // j0 + jt * BN + BN - 1 > i0
+  const long long d = (long long)i0 - j0 - BN + 1;
+  const long long jt_first = d < 0 ? 0 : d / BN + 1;
+  const long long span = jt_first < j_tiles ? j_tiles - jt_first : 0;
+  const int jt_begin = (int)(jt_first + span * blockIdx.y / splits);
+  const int jt_end = (int)(jt_first + span * (blockIdx.y + 1) / splits);
   const int steps = (jt_end - jt_begin) * k_slices;
 
   // the producer side of the ring: the next (j-tile, K-slice) to copy
@@ -180,8 +192,8 @@ roc_hist_kernel(const float* __restrict__ featsT, const int* __restrict__ labels
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < steps) {
-      load_slice(ring + ld_stage * STAGE_FLOATS, featsT, n_pad, i0, ld_jt * BN,
-                 ld_ks * BK, tid);
+      load_slice(ring + ld_stage * STAGE_FLOATS, featsT, n_cols, i0,
+                 b_col + ld_jt * BN, ld_ks * BK, tid);
       if (++ld_ks == k_slices) { ld_ks = 0; ++ld_jt; }
       ld_stage = ld_stage + 1 == STAGES ? 0 : ld_stage + 1;
     }
@@ -201,8 +213,8 @@ roc_hist_kernel(const float* __restrict__ featsT, const int* __restrict__ labels
     cp_async_wait<STAGES - 2>();
     __syncthreads();
     if (step + STAGES - 1 < steps) {
-      load_slice(ring + ld_stage * STAGE_FLOATS, featsT, n_pad, i0, ld_jt * BN,
-                 ld_ks * BK, tid);
+      load_slice(ring + ld_stage * STAGE_FLOATS, featsT, n_cols, i0,
+                 b_col + ld_jt * BN, ld_ks * BK, tid);
       if (++ld_ks == k_slices) { ld_ks = 0; ++ld_jt; }
       ld_stage = ld_stage + 1 == STAGES ? 0 : ld_stage + 1;
     }
@@ -230,16 +242,17 @@ roc_hist_kernel(const float* __restrict__ featsT, const int* __restrict__ labels
     if (++ks < k_slices) continue;
 
     // the j-tile is complete: bin and count its pairs (i a target row, j
-    // real, i < j) while the next tile's first slices are in flight
-    const int j0 = jt * BN;
+    // in the range, i < j) while the next tile's first slices are in flight
+    const int r0 = jt * BN;
     int li[TM];
 #pragma unroll
     for (int i = 0; i < TM; ++i) li[i] = lab_i[tile_row(ty, i)];
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      const int col = j0 + tile_col(tx, j);
-      if (col < n) {
-        const int lab_j = __ldg(labels + col);
+      const int r = r0 + tile_col(tx, j);
+      if (r < m) {
+        const int lab_j = __ldg(labels_j + r);
+        const int col = j0 + r;
 #pragma unroll
         for (int i = 0; i < TM; ++i) {
           const int row = i0 + tile_row(ty, i);
@@ -269,12 +282,37 @@ cudaError_t allow_smem() {
                               SMEM_BYTES);
 }
 
+// Makes `device` current for a launch and gives the caller its own current
+// device back on every return path: PyTorch reads the thread's current
+// device for every allocation and synchronize that names no index.
+class DeviceGuard {
+ public:
+  explicit DeviceGuard(int device) : err_(cudaGetDevice(&prev_)) {
+    if (err_ != cudaSuccess) {
+      prev_ = -1;
+      return;
+    }
+    if (prev_ != device) err_ = cudaSetDevice(device);
+  }
+  ~DeviceGuard() {
+    if (prev_ >= 0) cudaSetDevice(prev_);
+  }
+  DeviceGuard(const DeviceGuard&) = delete;
+  DeviceGuard& operator=(const DeviceGuard&) = delete;
+  cudaError_t error() const { return err_; }
+
+ private:
+  int prev_ = -1;
+  cudaError_t err_;
+};
+
 }  // namespace
 
 // cfg <- {BM, BN, BK, blocks of the kernel that fit on one SM, threads per
 // block, dynamic shared memory bytes per block}
 extern "C" int fedfr_roc_hist_config(int device, int* cfg) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err == cudaSuccess) err = allow_smem();
   int blocks = 0;
   if (err == cudaSuccess)
@@ -285,21 +323,30 @@ extern "C" int fedfr_roc_hist_config(int device, int* cfg) {
   return static_cast<int>(err);
 }
 
-// featsT (e_pad, n_pad): n_pad a multiple of BN, e_pad a positive multiple
-// of BK (an E = 0 input still needs one slice of zeros), zero-padded
-extern "C" int fedfr_roc_hist(const float* featsT, const int* labels,
-                              unsigned long long* out, int n, int t, int n_pad,
+// The pairs i < t, j0 <= j < j0 + m, i < j.  featsT (e_pad, n_cols): the t
+// targets in columns 0.., the range's m rows in columns b_col..; n_cols and
+// b_col multiples of BN, e_pad a positive multiple of BK (an E = 0 input
+// still needs one slice of zeros), zero-padded.  labels_i: the t targets'
+// labels; labels_j: the range's m labels.
+extern "C" int fedfr_roc_hist(const float* featsT, const int* labels_i,
+                              const int* labels_j, unsigned long long* out,
+                              int t, int m, int j0, int b_col, int n_cols,
                               int e_pad, int splits, int device, void* stream) {
-  if (n_pad % BN != 0 || e_pad % BK != 0 || e_pad < BK || n > n_pad || t > n)
+  const long long a_cols = (t + BM - 1) / BM * (long long)BM;
+  const long long b_cols = (m + BN - 1) / BN * (long long)BN;
+  if (n_cols % BN != 0 || b_col % BN != 0 || e_pad % BK != 0 || e_pad < BK ||
+      t < 0 || m < 0 || j0 < 0 || a_cols > n_cols || b_col + b_cols > n_cols)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err == cudaSuccess) err = allow_smem();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0 && t > 0 && splits > 0) {
+  if (m > 0 && t > 0 && splits > 0) {
     const dim3 grid((t + BM - 1) / BM, splits);
     roc_hist_kernel<<<grid, THREADS, SMEM_BYTES,
                       static_cast<cudaStream_t>(stream)>>>(
-        featsT, labels, out, n, t, n_pad, e_pad / BK, (n + BN - 1) / BN, splits);
+        featsT, labels_i, labels_j, out, t, m, j0, b_col, n_cols, e_pad / BK,
+        (m + BN - 1) / BN, splits);
   }
   return static_cast<int>(cudaGetLastError());
 }

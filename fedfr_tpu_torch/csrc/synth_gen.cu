@@ -61,8 +61,9 @@
 // distractor's span 2^30 - 2^26).
 //
 // Interface: plain C functions (built with nvcc into a shared library and
-// called through ctypes): the launch runs on the caller's stream, does not
-// synchronise, and returns cudaGetLastError(); the config call reports the
+// called through ctypes): the launch runs on the caller's stream on
+// `device`, does not synchronise, and returns cudaGetLastError(); both calls
+// leave the caller's current device as they found it; the config call reports the
 // run length, occupancy and registers the wrapper sizes the grid from.
 
 #include <cuda_runtime.h>
@@ -371,6 +372,30 @@ cudaError_t occupancy(int device, size_t smem, int* cfg) {
   return err;
 }
 
+// Makes `device` current for a launch and gives the caller its own current
+// device back on every return path: PyTorch reads the thread's current
+// device for every allocation and synchronize that names no index.
+class DeviceGuard {
+ public:
+  explicit DeviceGuard(int device) : err_(cudaGetDevice(&prev_)) {
+    if (err_ != cudaSuccess) {
+      prev_ = -1;
+      return;
+    }
+    if (prev_ != device) err_ = cudaSetDevice(device);
+  }
+  ~DeviceGuard() {
+    if (prev_ >= 0) cudaSetDevice(prev_);
+  }
+  DeviceGuard(const DeviceGuard&) = delete;
+  DeviceGuard& operator=(const DeviceGuard&) = delete;
+  cudaError_t error() const { return err_; }
+
+ private:
+  int prev_ = -1;
+  cudaError_t err_;
+};
+
 }  // namespace
 
 // cfg <- threads, run bytes, blocks per SM, registers per thread, SMs,
@@ -378,8 +403,8 @@ cudaError_t occupancy(int device, size_t smem, int* cfg) {
 // `block` x `block` templates
 extern "C" int fedfr_synth_gen_config(int device, int size, int block, int* cfg) {
   if (size < 1 || block < 1 || size % block != 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   const size_t smem = smem_bytes(size, block);
   return (int)(run_for(size) == RUN ? occupancy<RUN>(device, smem, cfg)
                                     : occupancy<1>(device, smem, cfg));
@@ -398,7 +423,8 @@ extern "C" int fedfr_synth_gen(const void* keys, const void* gids, const void* b
   if (size < 1 || block < 1 || size % block != 0 || shift_div < 1 ||
       run != run_for(size) || reinterpret_cast<uintptr_t>(out) % run != 0 || chunk < 1)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return (int)err;
   Params p{(const int32_t*)keys, (const int32_t*)gids, (const int32_t*)bgids,
            (const int32_t*)dseeds, (const float*)bw, Key{master0, master1}, size, noise,

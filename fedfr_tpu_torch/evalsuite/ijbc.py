@@ -39,7 +39,8 @@ import torch
 from torch import nn
 
 from ..data.pipeline import prefetched
-from ..federated.state import normalize_images
+from ..federated.embed import ShardedEmbed
+from ..parallel.mesh import Mesh, auto_data_mesh
 from ..utils.device import resolve_device
 from ..utils.table import ascii_table
 from .align import align_face
@@ -380,17 +381,19 @@ def extract_ijbc_features(model: nn.Module, root_path: str, batch_size: int = 25
                           use_flip_test: bool = False,
                           cache_path: Optional[str] = None, target: str = "IJBC",
                           return_device: bool = False,
-                          device: Union[str, torch.device] = "cuda"):
+                          device: Union[str, torch.device] = "cuda",
+                          mesh: Optional[Mesh] = None):
     """Align and embed the image list (ijbc_all.py:142-223) with ``model``
-    (already on ``device``, run in eval mode): fixed-size uint8 batches (the
-    last padded by repeating its first image, then cut), copied to the
-    device by a background thread; ``use_flip_test`` appends the embedding
-    of the W-mirrored image.  Returns ((N, E or 2E) fp32 features, on the
-    device with ``return_device``, else on the host; (N,) faceness)."""
+    (already on ``device``, run in eval mode, over ``mesh``'s ``data`` axis,
+    default the auto layout): fixed-size uint8 batches (the last padded by
+    repeating its first image, then cut), copied to the devices by a
+    background thread; ``use_flip_test`` appends the embedding of the
+    W-mirrored image.  Returns ((N, E or 2E) fp32 features, on ``device``
+    with ``return_device``, else on the host; (N,) faceness)."""
     device = resolve_device(device)
     imgs, faceness = aligned_images(root_path, cache_path, target)
     n = len(faceness)
-    model.eval()
+    embed = ShardedEmbed(model, mesh if mesh is not None else auto_data_mesh(device))
 
     def batches():
         for s in range(0, n, batch_size):
@@ -398,17 +401,14 @@ def extract_ijbc_features(model: nn.Module, root_path: str, batch_size: int = 25
             batch = np.array(imgs[s:e])
             if e - s < batch_size:
                 batch = np.concatenate([batch, np.repeat(batch[:1], batch_size - (e - s), 0)])
-            t = torch.from_numpy(batch)
-            if device.type == "cuda":
-                t = t.pin_memory().to(device, non_blocking=True)
-            yield s, e, t
+            yield s, e, embed.place(batch)
 
     chunks: List[torch.Tensor] = []
     host_feats = None
-    for s, e, u8 in prefetched(batches(), 2):
-        f = model(normalize_images(u8)).float()
+    for s, e, placed in prefetched(batches(), 2):
+        f = embed.embed(placed)
         if use_flip_test:
-            f = torch.cat([f, model(normalize_images(u8.flip(2))).float()], dim=1)
+            f = torch.cat([f, embed.embed(placed, flip=True)], dim=1)
         if return_device:
             chunks.append(f[: e - s])
         else:

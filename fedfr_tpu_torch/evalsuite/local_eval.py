@@ -4,7 +4,8 @@ The port's counterpart of ``fedfr_tpu/evalsuite/local_eval.py`` (the
 reference's eval_local.py -> roc_cuda.py chain, and local_all.py:142-177
 for 1:n): embedding, the all-pairs histogram ROC and open-set retrieval run
 in the same process, and the features stay on the device until the
-histogram.
+histogram.  Over a mesh (default: every visible GPU of a run on the card)
+the embed splits its batches and the ROC its rows over the ``data`` axis.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from torch import nn
 
 from ..federated.embed import embed_dataset
 from ..ops.roc_histogram import client_roc
+from ..parallel.mesh import Mesh
 from .openset import openset_thresholds
 
 logger = logging.getLogger("fedfr_tpu_torch.local_eval")
@@ -39,9 +41,11 @@ def append_local_log(output_dir: str, start_id: int, end_id: int, epoch: int,
 
 def local_11_roc(feats: torch.Tensor, labels: np.ndarray, start_id: int,
                  end_id: int, epoch: int = 0,
-                 output_dir: Optional[str] = None) -> List[float]:
-    """One client's 1:1 TPR@FPR(-1..-6) table over the local veri set."""
-    table = client_roc(feats, labels, start_id, end_id)
+                 output_dir: Optional[str] = None,
+                 mesh: Optional[Mesh] = None) -> List[float]:
+    """One client's 1:1 TPR@FPR(-1..-6) table over the local veri set (the
+    histogram's rows over ``mesh``, default the auto layout)."""
+    table = client_roc(feats, labels, start_id, end_id, mesh)
     logger.info("Target label from %d to %d", start_id, end_id - 1)
     logger.info("Epoch %d, TPR (-1 to -6) = %r", epoch, table)
     if output_dir is not None:
@@ -100,12 +104,14 @@ class LocalVerificationCallback:
     clients train in are never touched.  ``veri_test`` embeds the veri set
     (through the BCE converter when a BCE state is given), builds the
     client's ROC histogram on the device and appends the table to
-    ``<output_dir>/clients/client_<id>/local_log.txt``.
+    ``<output_dir>/clients/client_<id>/local_log.txt``.  Both run over
+    ``mesh``'s ``data`` axis (default the auto layout).
     """
 
     def __init__(self, net: nn.Module, bce_module: Optional[nn.Module],
                  veri_dataset, output_dir: str, batch_size: int = 512,
-                 device="cuda", num_workers: int = 6, prefetch: int = 2):
+                 device="cuda", num_workers: int = 6, prefetch: int = 2,
+                 mesh: Optional[Mesh] = None):
         self.net = net.eval().requires_grad_(False)
         self.bce_module = bce_module
         self.dataset = veri_dataset
@@ -114,6 +120,7 @@ class LocalVerificationCallback:
         self.device = device
         self.num_workers = num_workers
         self.prefetch = prefetch
+        self.mesh = mesh
         self.client_record: dict = {}
 
     def veri_test(self, backbone_state: StateDict, global_step: int, id_list,
@@ -128,10 +135,10 @@ class LocalVerificationCallback:
                                       l2norm=True, device=self.device,
                                       num_workers=self.num_workers,
                                       prefetch=self.prefetch,
-                                      converter=converter)
+                                      converter=converter, mesh=self.mesh)
         client_dir = os.path.join(self.output_dir, "clients",
                                   f"client_{client_id}")
         table = local_11_roc(feats, labels, id_list[0], id_list[-1] + 1,
-                             epoch=global_step, output_dir=client_dir)
+                             epoch=global_step, output_dir=client_dir, mesh=self.mesh)
         self.client_record.setdefault(client_id, []).append((global_step, table))
         return table

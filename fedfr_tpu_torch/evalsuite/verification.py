@@ -5,7 +5,9 @@ The port's counterpart of ``fedfr_tpu/evalsuite/verification.py``
 pair set, embeds the original and the horizontally flipped images, sums the
 two embeddings, l2-normalises, and runs the 10-fold evaluation
 (``ops/kfold.py``).  The flip happens on the device; the fold math runs on
-the host in fp64, as in the JAX package.
+the host in fp64, as in the JAX package.  The embed runs over a mesh's
+``data`` axis (``federated/embed.py::ShardedEmbed``; default the auto
+layout, every visible GPU of a run on the card).
 """
 
 from __future__ import annotations
@@ -21,9 +23,9 @@ import torch
 from torch import nn
 
 from ..data import codec
-from ..data.pipeline import to_device_batch
-from ..federated.state import normalize_images
+from ..federated.embed import ShardedEmbed
 from ..ops.kfold import evaluate
+from ..parallel.mesh import Mesh, auto_data_mesh
 from ..utils.device import resolve_device
 
 _BIN_CACHE_FORMAT = "fedfr_tpu.bin_cache.v1"  # the JAX package's cache format
@@ -97,16 +99,18 @@ def load_bin(path: str, image_size: Tuple[int, int] = (112, 112),
 
 @torch.no_grad()
 def test_bin(model: nn.Module, data: np.ndarray, issame: np.ndarray,
-             batch_size: int = 128, nfolds: int = 10, device="cuda"):
+             batch_size: int = 128, nfolds: int = 10, device="cuda",
+             mesh: Optional[Mesh] = None):
     """Embed + evaluate one pair set (reference verification.py:234-282).
 
-    ``model`` lives on ``device`` and runs in eval mode.  The last window
+    ``model`` lives on ``device`` and runs in eval mode, over ``mesh``'s
+    ``data`` axis (default ``auto_data_mesh(device)``).  The last window
     is the reference's full-size window ending at N (padded at the front by
     repeating its first image when N < ``batch_size``).  Returns
     (accuracy-flip mean, std, xnorm, embeddings, inference seconds).
     """
     device = resolve_device(device)
-    model.eval()
+    embed = ShardedEmbed(model, mesh if mesh is not None else auto_data_mesh(device))
     n = data.shape[0]
     emb_lists = []
     infer_time = 0.0
@@ -118,11 +122,9 @@ def test_bin(model: nn.Module, data: np.ndarray, issame: np.ndarray,
             if batch.shape[0] < batch_size:
                 pad = np.repeat(batch[:1], batch_size - batch.shape[0], axis=0)
                 batch = np.concatenate([pad, batch])
-            u8 = to_device_batch((batch,), device)[0]
-            if flip:
-                u8 = u8.flip(2)
+            placed = embed.place(batch)
             t0 = time.time()
-            feats = model(normalize_images(u8)).float().cpu().numpy()
+            feats = embed.embed(placed, flip).cpu().numpy()
             infer_time += time.time() - t0
             if out is None:
                 out = np.zeros((n, feats.shape[1]), dtype=np.float64)
@@ -149,10 +151,12 @@ class BinVerificationCallback:
 
     def __init__(self, net: nn.Module, targets: List[str], data_dir: str,
                  batch_size: int = 128, logger: Optional[logging.Logger] = None,
-                 image_size: Tuple[int, int] = (112, 112), device="cuda"):
+                 image_size: Tuple[int, int] = (112, 112), device="cuda",
+                 mesh: Optional[Mesh] = None):
         self.net = net.eval().requires_grad_(False)
         self.batch_size = batch_size
         self.device = device
+        self.mesh = mesh
         self.sets = []
         self.names: List[str] = []
         self.highest: List[Tuple[int, float]] = []
@@ -169,7 +173,8 @@ class BinVerificationCallback:
         accs = []
         for i, (data, issame) in enumerate(self.sets):
             acc, std, xnorm, _, _ = test_bin(self.net, data, issame,
-                                             self.batch_size, device=self.device)
+                                             self.batch_size, device=self.device,
+                                             mesh=self.mesh)
             if self.logger:
                 self.logger.info("[%s][%d]XNorm: %f", self.names[i], round_idx, xnorm)
                 self.logger.info("[%s][%d]Accuracy-Flip: %1.5f+-%1.5f",

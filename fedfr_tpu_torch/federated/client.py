@@ -30,6 +30,7 @@ from ..data.pipeline import DevicePrefetcher
 from ..models import BCEModule, build_backbone, l2_normalize
 from ..utils.device import resolve_device
 from ..utils.optim import step_lr
+from ..parallel.mesh import Mesh, synchronize
 from ..utils.profiling import SpanTimer
 from .embed import (class_mean_features, embed_dataset, embed_flip_caches,
                     max_similarity)
@@ -92,7 +93,9 @@ class Client:
 
     ``backbone`` and ``bce_module`` are the modules a local run trains and
     ``last_net`` the frozen module the last-round model runs in; a server
-    shares one of each among all its clients.  ``flip_fn(step_no, images)``,
+    shares one of each among all its clients.  Its embeds (mining, FC
+    init, the contrastive caches) run over ``mesh``'s ``data`` axis
+    (default ``mesh.auto_data_mesh``).  ``flip_fn(step_no, images)``,
     when given, returns the (B,) flip mask of each step in place of the
     client's own seeded generator (the parity tests inject the JAX
     package's masks through it).
@@ -101,7 +104,8 @@ class Client:
     def __init__(self, cid: int, cfg: FedFRConfig, dataset: FaceRecordDataset,
                  backbone: nn.Module, bce_module: Optional[nn.Module], *,
                  last_net: Optional[nn.Module] = None,
-                 device=None, flip_fn: Optional[FlipFn] = None):
+                 device=None, flip_fn: Optional[FlipFn] = None,
+                 mesh: Optional[Mesh] = None):
         self.cid = cid
         self.cfg = cfg
         self.dataset = dataset
@@ -114,6 +118,7 @@ class Client:
         self.id_base = int(dataset.id_base or cid * self.num_classes)
         self.target_ids = list(range(self.id_base, self.id_base + self.num_classes))
         self.flip_fn = flip_fn
+        self.mesh = mesh
         self.last_net = last_net
         if cfg.fed.contrastive and last_net is None:
             self.last_net = copy.deepcopy(backbone).eval().requires_grad_(False)
@@ -155,7 +160,8 @@ class Client:
         feats, labels = embed_dataset(global_net, self.dataset,
                                       self.cfg.data.eval_batch_size,
                                       l2norm=False, device=self.device,
-                                      num_workers=self.cfg.data.num_workers)
+                                      num_workers=self.cfg.data.num_workers,
+                                      mesh=self.mesh)
         self.fc_local = class_mean_features(feats, labels, self.num_classes,
                                             normalize_before)
 
@@ -176,7 +182,8 @@ class Client:
         local_feats, _ = embed_dataset(global_net, self.dataset,
                                        self.cfg.data.eval_batch_size,
                                        l2norm=True, device=self.device,
-                                       num_workers=self.cfg.data.num_workers)
+                                       num_workers=self.cfg.data.num_workers,
+                                       mesh=self.mesh)
         scores = max_similarity(local_feats, public_feats).cpu().numpy()
         mask = scores > self.cfg.fed.hn_threshold
         cap = self.cfg.fed.hn_cap
@@ -311,23 +318,27 @@ class Client:
                                    self.cfg.data.eval_batch_size,
                                    device=self.device,
                                    num_workers=self.cfg.data.num_workers,
-                                   prefetch=self.cfg.data.prefetch)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+                                   prefetch=self.cfg.data.prefetch, mesh=self.mesh)
+        synchronize([self.device] + (self.mesh.distinct_devices()
+                                     if self.mesh is not None else []))
         logger.info("client %d: contrastive caches of %d imgs built in %.3f s",
                     self.cid, len(combined), time.perf_counter() - tic)
         return caches
 
-    def generators(self, round_seed: int):
+    def generators(self, round_seed: int, device=None):
         """This run's flip generator (None when ``flip_fn`` injects the
-        masks) and dropout generator (None without dropout)."""
+        masks) and dropout generator (None without dropout), on ``device``
+        (default the client's): a member that trains on another card draws
+        there from the same seeds, and Philox gives the same stream on any
+        card."""
         cfg = self.cfg
+        device = self.device if device is None else device
         gen = dropout_gen = None
         if self.flip_fn is None:
-            gen = torch.Generator(device=self.device).manual_seed(
+            gen = torch.Generator(device=device).manual_seed(
                 _flip_seed(cfg.runtime.seed, round_seed, self.cid))
         if cfg.model.dropout > 0:
-            dropout_gen = torch.Generator(device=self.device).manual_seed(
+            dropout_gen = torch.Generator(device=device).manual_seed(
                 _dropout_seed(cfg.runtime.seed, round_seed, self.cid))
         return gen, dropout_gen
 

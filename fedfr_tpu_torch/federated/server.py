@@ -34,14 +34,22 @@ public-data objective with feature or FC-row mining and the MOON term
 recomputed or cached, the plain objective (``fed.add_pretrained_data``
 off), and SpreadOut after the aggregation.
 
-``train_round_parallel`` is the JAX ``Server.train_round_parallel``
-(server.py:416-728) on one device: the sampled clients in groups of K =
-``fed.lockstep`` (clamped to the sample), each group advanced in lockstep
-by one stacked step a dispatch (``parallel/client_parallel.py``), both
-objectives and the cached MOON step.  A client whose epoch is shorter than
-the group's longest wraps around its reshuffled loader, as in the JAX
-package; with equal epochs the round equals the sequential one.  It takes
-no mesh: on one card there is one client-axis slice.
+``train_round_parallel(mesh)`` is the JAX ``Server.train_round_parallel``
+(server.py:416-728): the sampled clients in groups of K = ``fed.lockstep``
+x the mesh's ``client`` axis (the lockstep clamped to the sample), device
+d of the axis holding members [d*L, (d+1)*L) of a group in a stacked state
+of its own (its own replicas of the global and last-round models and its
+own stacked step, ``parallel/client_parallel.py``), every device's step
+dispatched in turn from this one process; both objectives and the cached
+MOON step.  Without a mesh it is one device.  A client whose epoch is
+shorter than the group's longest wraps around its reshuffled loader, as
+in the JAX package; with equal epochs the round equals the sequential one.
+
+``devices`` (default: every visible GPU of a run on the card, else the
+CPU) is the run's device list: every embed runs over its ``data`` axis
+(``self.data_mesh``) and every span ends with all of them synchronized.
+Mining, aggregation and the clients' state between rounds stay on
+``self.device``.
 """
 
 from __future__ import annotations
@@ -63,6 +71,7 @@ from ..models.iresnet import draw_dropout_keep
 from ..parallel import client_parallel as cp
 from ..parallel.fedavg import (fedavg_on_fc, spreadout, spreadout_loss, stack_trees,
                                streaming_weighted_average)
+from ..parallel.mesh import Mesh, as_device, data_mesh, make_mesh, visible_devices
 from ..utils.checkpoint import load_backbone_state, load_pth
 from ..utils.device import resolve_device
 from ..utils.optim import step_lr
@@ -79,13 +88,21 @@ def _host_state(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.detach().cpu() for k, v in state.items()}
 
 
+def _to(state: Optional[Dict[str, torch.Tensor]], device) -> Optional[Dict[str, torch.Tensor]]:
+    return None if state is None else {k: v.to(device) for k, v in state.items()}
+
+
 class Server:
     def __init__(self, cfg: FedFRConfig, data: AllClientData,
                  eval_callback: Optional[Callable] = None,
-                 local_eval_callback: Optional[Callable] = None):
+                 local_eval_callback: Optional[Callable] = None,
+                 devices: Optional[List] = None):
         self.cfg = cfg
         self.data = data
         self.device = resolve_device(cfg.runtime.device)
+        self.devices = [as_device(d) for d in (devices if devices
+                                               else visible_devices(self.device))]
+        self.data_mesh = data_mesh(devices=self.devices)
         self.eval_callback = eval_callback
         self.local_eval_callback = local_eval_callback
         self.rng = np.random.default_rng(cfg.runtime.seed)
@@ -114,10 +131,10 @@ class Server:
                                     m=cfg.loss.bce_margin, r=cfg.loss.bce_scale,
                                     t=cfg.loss.bce_t).to(self.device)
 
-        self.timer = SpanTimer(self.device)  # per-phase round breakdown
+        self.timer = SpanTimer(self.devices)  # per-phase round breakdown
         self.clients: List[Client] = [
             Client(cid, cfg, data.client(cid), self.backbone, self.bce_module,
-                   last_net=self.last_net, device=self.device)
+                   last_net=self.last_net, device=self.device, mesh=self.data_mesh)
             for cid in range(cfg.data.num_clients)]
         for c in self.clients:
             c.timer = self.timer
@@ -148,7 +165,7 @@ class Server:
         self._plain_step = None
         self._parallel_step = None
         self._parallel_plain_step = None
-        self._group_nets: Dict[str, torch.nn.Module] = {}
+        self._group_nets: Dict[tuple, torch.nn.Module] = {}
         self._lockstep_warned = False
 
     def _pretrained(self, name: str) -> str:
@@ -161,7 +178,7 @@ class Server:
         return embed_dataset(self.global_net, dataset, batch_size,
                              l2norm=l2norm, device=self.device,
                              num_workers=self.cfg.data.num_workers,
-                             prefetch=self.cfg.data.prefetch)
+                             prefetch=self.cfg.data.prefetch, mesh=self.data_mesh)
 
     # ------------------------------------------------------------- FC init
 
@@ -312,72 +329,106 @@ class Server:
 
     # ----------------------------------------------------- lockstep rounds
 
-    def _lockstep_group_size(self) -> int:
-        """Clients per lockstep group (JAX server.py:289-310 with a client
-        axis of 1): ``fed.lockstep``, clamped to the sampled count so that no
-        group burns slots on padded duplicate compute; warns once a run."""
+    def _client_mesh(self, mesh: Optional[Mesh]) -> Mesh:
+        """``mesh``, or one client-axis slot on ``self.device`` without
+        one.  A member trains on one device, so a mesh whose ``data`` or
+        ``model`` axis holds more than one device is refused."""
+        if mesh is None:
+            return make_mesh((1, 1, 1), [self.device])
+        if mesh.shape["data"] > 1 or mesh.shape["model"] > 1:
+            raise ValueError(f"the client-parallel round places each member on one "
+                             f"device; mesh {mesh.shape} splits a member over its "
+                             f"data or model axis")
+        return mesh
+
+    def _lockstep_group_size(self, mesh: Optional[Mesh] = None) -> int:
+        """Clients per lockstep group (JAX server.py:289-310): the client
+        axis's size (1 without a mesh) x ``fed.lockstep``, the lockstep
+        clamped so that one group never exceeds the sampled count (an
+        oversized one would burn the excess slots on padded duplicate
+        compute every round); warns once a run."""
+        axis = self._client_mesh(mesh).shape["client"]
         lockstep = max(1, self.cfg.fed.lockstep)
         n = max(1, len(self.current_client_list))
-        if lockstep > n:
+        max_useful = -(-n // axis)  # the smallest lockstep covering n
+        if lockstep > max_useful:
             log = logger.debug if self._lockstep_warned else logger.warning
             self._lockstep_warned = True
             log("lockstep %d oversized for %d sampled clients on a %d-wide "
                 "client axis (padded duplicate compute); clamping to %d",
-                lockstep, n, 1, n)
-            lockstep = n
-        return lockstep
+                lockstep, n, axis, max_useful)
+            lockstep = max_useful
+        return axis * lockstep
 
-    def _group_net(self, role: str, k: int) -> torch.nn.Module:
-        """The K-client stacked copy of the work backbone (``train``) or of
-        the last-round model's module (``last``), built once a run."""
-        key = f"{role}{k}"
+    def _group_net(self, role: str, k: int, slot: int = 0,
+                   device: Optional[torch.device] = None) -> torch.nn.Module:
+        """Client-axis slot ``slot``'s K-client stacked copy of the work
+        backbone (``train``) or of the last-round model's module
+        (``last``) on ``device`` (default ``self.device``), built once a
+        run (two slots on one device each have their own)."""
+        key = (role, k, slot)
         if key not in self._group_nets:
             module = self.backbone if role == "train" else self.last_net
-            self._group_nets[key] = cp.stack_module(module, k)
+            self._group_nets[key] = cp.stack_module(module, k).to(
+                self.device if device is None else device)
         return self._group_nets[key]
 
     @staticmethod
-    def _stack_for_group(parts: list, pad: int):
-        """Stack per-client state_dicts or tensors; pad slots repeat slot 0
-        (their results are discarded after the run)."""
+    def _stack_slots(parts: list, pad: int, mesh: Mesh) -> list:
+        """Per-client state_dicts or tensors of a group's real members, pad
+        slots repeating member 0 (their results are discarded after the
+        run), stacked and split over the client axis
+        (``shard_stacked_tree``): slot d holds members [d*L, (d+1)*L) on
+        its device."""
         parts = list(parts) + [parts[0]] * pad
         if isinstance(parts[0], dict):
-            return stack_trees(parts)
-        return torch.stack(parts)
+            return cp.shard_stacked_tree(mesh, stack_trees(parts))
+        return [s["t"] for s in cp.shard_stacked_tree(mesh, {"t": torch.stack(parts)})]
 
-    def _group_draws(self, group: List[int], pad: int, step_no: int,
-                     imgs: torch.Tensor, gens: list):
-        """One dispatch's (K, B) flip masks and, with dropout, (K*B, D) keep
-        masks: each real member draws from its own generators (the JAX
-        ``_group_keys``), in member order, as its sequential run would; a
+    def _group_draws(self, group: List[int], pad: int, step_no: int, imgs, gens: list):
+        """One dispatch's flip masks and, with dropout, keep masks, one (B,)
+        and one (B, D) tensor a slot on the slot's device (``imgs[k]``,
+        member k's batch, gives both): each real member draws from its own
+        generators (the JAX ``_group_keys``) as its sequential run would; a
         pad slot repeats slot 0's masks and draws nothing."""
         flips = [self.clients[cid].draw_flip(step_no, imgs[k], gens[k][0])
                  for k, cid in enumerate(group)]
-        flips = torch.stack(flips + [flips[0]] * pad)
-        keep = None
+        flips += [flips[0].to(imgs[k].device) for k in range(len(group), len(group) + pad)]
+        keeps = None
         if self.cfg.model.dropout > 0:
-            shape = (imgs.shape[1], self.backbone.fc.in_features)
-            keeps = [draw_dropout_keep(shape, self.cfg.model.dropout, g[1], imgs.device)
-                     for g in gens]
-            keep = torch.cat(keeps + [keeps[0]] * pad)
-        return flips, keep
+            shape = (imgs[0].shape[0], self.backbone.fc.in_features)
+            keeps = [draw_dropout_keep(shape, self.cfg.model.dropout, g[1], imgs[k].device)
+                     for k, g in enumerate(gens)]
+            keeps += [keeps[0].to(imgs[k].device)
+                      for k in range(len(group), len(group) + pad)]
+        return flips, keeps
+
+    @staticmethod
+    def _slot_draws(flips: list, keeps: Optional[list], d: int, step: int):
+        """Slot ``d``'s stacked (L, B) flips and (L*B, D) keep masks."""
+        sl = slice(d * step, (d + 1) * step)
+        return torch.stack(flips[sl]), (torch.cat(keeps[sl]) if keeps else None)
 
     @contextlib.contextmanager
     def _group_feed(self, group: List[int], loaders: list, pad: int,
-                    batch_size: int, with_positions: bool = False):
+                    batch_size: int, devices: List[torch.device],
+                    with_positions: bool = False):
         """The device batch feed of one lockstep group (JAX server.py:232-274):
         per-client iterators in lockstep, each wrapping around its loader
         (a fresh shuffle every pass) so that every member yields the group's
         ``local_epoch x`` longest-epoch steps, pad slots repeating slot 0's
         batch, an empty-loader guard (an empty loader would never yield),
         and the feed and loaders shut down on every exit path.  Yields
-        (feed of stacked (K, B, ...) device batches, steps per epoch)."""
+        (feed, steps per epoch); each item of the feed holds, for each
+        client-axis slot of ``devices``, its L members' stacked (L, B, ...)
+        batch on its device (JAX ``batch_shard``)."""
         try:
             if min(len(l) for l in loaders) == 0:
                 empty = [cid for cid, l in zip(group, loaders) if len(l) == 0]
                 raise ValueError(f"clients {empty}: dataset smaller than the "
                                  f"batch size {batch_size}")
             steps_per_epoch = max(len(l) for l in loaders)
+            step = (len(group) + pad) // len(devices)
 
             def cycling(loader):
                 while True:
@@ -389,7 +440,9 @@ class Server:
                 for _ in range(self.local_epoch * steps_per_epoch):
                     batches = [next(it) for it in iters]
                     batches += [batches[0]] * pad
-                    yield to_device_batch(cp.stack_client_batches(batches), self.device)
+                    yield [to_device_batch(cp.stack_client_batches(
+                        batches[d * step:(d + 1) * step]), dev)
+                        for d, dev in enumerate(devices)]
 
             feed = prefetched(device_batches(), depth=max(1, self.cfg.data.prefetch))
             try:
@@ -420,24 +473,41 @@ class Server:
                     self.local_eval_callback(self, self.clients[cid], epoch=-1,
                                              variables=self.global_net.state_dict())
 
-    def train_round_parallel(self) -> Dict[str, float]:
+    def _slot_members(self, states: list, n_real: int) -> list:
+        """The real members' trained (backbone, fc, bce) out of each slot's
+        stacked state, in member order, copied to ``self.device`` (where
+        the clients keep their state and FedAvg runs)."""
+        out = []
+        for state in states:
+            n = min(n_real - len(out), state.fc.shape[0])
+            if n > 0:
+                out += [(_to(b, self.device), fc.to(self.device), _to(bce, self.device))
+                        for b, fc, bce in cp.group_client_states(state, n)]
+        return out
+
+    def train_round_parallel(self, mesh: Optional[Mesh] = None) -> Dict[str, float]:
         """One round with the sampled clients trained K at a time in lockstep
-        (JAX server.py:416-632): per group, each real member's mining and
-        starting state (and under ``use_cached_contrastive`` its frozen
-        feature caches), taken out of the shared work modules before the
-        next member's preparation; then ``local_epoch`` x the longest
-        member's steps of the stacked branch step; then each member's
-        trained state, its local eval, and FedAvg as the sequential round.
-        The plain objective goes to ``_train_round_parallel_plain``."""
+        over ``mesh``'s client axis (JAX server.py:416-632): per group, each
+        real member's mining and starting state (and under
+        ``use_cached_contrastive`` its frozen feature caches, built over the
+        data mesh and copied to its slot's device), taken out of the shared
+        work modules before the next member's preparation; then
+        ``local_epoch`` x the longest member's steps, each a stacked step on
+        every slot's device; then each member's trained state, its local
+        eval, and FedAvg as the sequential round.  The plain objective goes
+        to ``_train_round_parallel_plain``."""
         cfg = self.cfg
         if not cfg.fed.add_pretrained_data:
-            return self._train_round_parallel_plain()
+            return self._train_round_parallel_plain(mesh)
         self._round_start()
         public_feats = None
         if cfg.fed.hn_strategy != "fc":
             # FC-row mining reads no image features: no public embed then
             public_feats = self.generate_public_features()
-        K = self._lockstep_group_size()
+        mesh = self._client_mesh(mesh)
+        devs = cp.client_sharding(mesh)
+        K = self._lockstep_group_size(mesh)
+        L = K // len(devs)
         self._check_uniform_classes()
         use_cache = use_cached_contrastive(cfg)
         if self._parallel_step is None:
@@ -445,10 +515,13 @@ class Server:
                 self.backbone, self.bce_module, cached_contrastive=use_cache,
                 **branch_objective_kwargs(cfg, self.clients[0].num_classes))
         step_fn = self._parallel_step
-        net = self._group_net("train", K)
-        last_net = None
+        nets = [self._group_net("train", L, d, dev) for d, dev in enumerate(devs)]
+        last_nets = None
         if cfg.fed.contrastive and not use_cache:
-            last_net = self._group_net("last", K).eval()
+            last_nets = [self._group_net("last", L, d, dev).eval()
+                         for d, dev in enumerate(devs)]
+        # the global model on every slot's device, this round's weights
+        global_nets = mesh.replicas(self.global_net, "client")
 
         models, fcs, sizes, losses = [], [], [], []
         todo = list(self.current_client_list)
@@ -456,10 +529,11 @@ class Server:
         for g0 in range(0, len(todo), K):
             group = todo[g0:g0 + K]
             pad = K - len(group)
+            slot_dev = [devs[k // L] for k in range(K)]
             # prepare only the REAL members (a pad reusing client 0's
             # preparation would rerun its mining and advance its loader)
             loaders, backbones, fc_rows, bces, lasts, caches = [], [], [], [], [], []
-            for cid in group:
+            for k, cid in enumerate(group):
                 client = self.clients[cid]
                 combined, loader, state, member_last = client.prepare_local_run(
                     self.global_net, self.data.public_dataset, self.pretrained_fc,
@@ -472,60 +546,77 @@ class Server:
                 bces.append(_detached(state.bce) if state.bce is not None else None)
                 if use_cache:
                     with self.timer.span("phase/contrastive_cache"):
-                        caches.append(client.build_flip_caches(
-                            self.global_net, member_last, combined))
-                elif last_net is not None:
+                        # built over the data mesh, kept on the member's
+                        # device only: the group cache is never assembled
+                        caches.append([c.to(slot_dev[k]) for c in client.build_flip_caches(
+                            self.global_net, member_last, combined)])
+                elif last_nets is not None:
                     lasts.append(_detached(member_last))
-            net.load_state_dict(self._stack_for_group(backbones, pad))
-            state = cp.init_group_state(
-                net, self._stack_for_group(fc_rows, pad),
-                self._stack_for_group(bces, pad) if bces[0] is not None else None,
-                cfg.optim.lr, cfg.optim.momentum, cfg.optim.weight_decay)
+            states = []
+            for net, backbone in zip(nets, self._stack_slots(backbones, pad, mesh)):
+                net.load_state_dict(backbone)
+            for d, (fc, bce) in enumerate(zip(
+                    self._stack_slots(fc_rows, pad, mesh),
+                    self._stack_slots(bces, pad, mesh) if bces[0] is not None
+                    else [None] * len(devs))):
+                states.append(cp.init_group_state(nets[d], fc, bce, cfg.optim.lr,
+                                                  cfg.optim.momentum, cfg.optim.weight_decay))
             del backbones, fc_rows, bces
             if use_cache:
-                # (K, nmax, 2, E): each member's caches zero-padded to the
-                # group's longest (gathers never reach pad rows)
-                nmax = max(c.shape[0] for pair in caches for c in pair)
-                g_stacked, l_stacked = (self._stack_for_group(
-                    [torch.nn.functional.pad(pair[i], (0, 0, 0, 0, 0, nmax - pair[i].shape[0]))
-                     for pair in caches], pad) for i in (0, 1))
+                # (L, nmax, 2, E) a slot: its members' caches zero-padded to
+                # the slot's longest (gathers never reach pad rows)
+                g_stacked, l_stacked = [], []
+                for d, dev in enumerate(devs):
+                    pairs = [caches[k] if k < len(group) else caches[0]
+                             for k in range(d * L, (d + 1) * L)]
+                    nmax = max(c.shape[0] for pair in pairs for c in pair)
+                    g_stacked.append(torch.stack([torch.nn.functional.pad(
+                        p[0], (0, 0, 0, 0, 0, nmax - p[0].shape[0])).to(dev) for p in pairs]))
+                    l_stacked.append(torch.stack([torch.nn.functional.pad(
+                        p[1], (0, 0, 0, 0, 0, nmax - p[1].shape[0])).to(dev) for p in pairs]))
                 del caches
-            elif last_net is not None:
-                last_net.load_state_dict(self._stack_for_group(lasts, pad))
+            elif last_nets is not None:
+                for net, last in zip(last_nets, self._stack_slots(lasts, pad, mesh)):
+                    net.load_state_dict(last)
                 del lasts
-            gens = [self.clients[cid].generators(self.global_round) for cid in group]
+            gens = [self.clients[cid].generators(self.global_round, slot_dev[k])
+                    for k, cid in enumerate(group)]
 
-            acc = torch.zeros(K, 4, device=self.device)
+            accs = [torch.zeros(L, 4, device=dev) for dev in devs]
             step_no = 0
             with self._group_feed(group, loaders, pad, cfg.data.combined_batch_size,
-                                  with_positions=use_cache) as (feed, steps_per_epoch):
+                                  devs, with_positions=use_cache) as (feed, steps_per_epoch):
                 with self.timer.span("phase/local_train"):
                     for epoch in range(self.local_epoch):
                         lr = step_lr(cfg.optim.lr, epoch, self.train_decay,
                                      cfg.optim.lr_gamma)
                         for _ in range(steps_per_epoch):
-                            batch = next(feed)
-                            imgs, labels, valid = batch[:3]
-                            flips, keep = self._group_draws(group, pad, step_no, imgs, gens)
-                            if use_cache:
-                                state, metrics = step_fn(
-                                    state, g_stacked, l_stacked, imgs, labels, valid,
-                                    batch[3], lr, flips, dropout_keep=keep)
-                            else:
-                                state, metrics = step_fn(
-                                    state, self.global_net, last_net, imgs, labels,
-                                    valid, lr, flips, dropout_keep=keep)
-                            # on-device running sums: the reported loss is the
-                            # all-step mean, as on the sequential path
-                            acc += torch.stack(metrics, dim=1)
+                            slots = next(feed)
+                            flips, keeps = self._group_draws(
+                                group, pad, step_no, [x for b in slots for x in b[0]], gens)
+                            for d, batch in enumerate(slots):
+                                imgs, labels, valid = batch[:3]
+                                flip, keep = self._slot_draws(flips, keeps, d, L)
+                                if use_cache:
+                                    states[d], metrics = step_fn(
+                                        states[d], g_stacked[d], l_stacked[d], imgs, labels,
+                                        valid, batch[3], lr, flip, dropout_keep=keep)
+                                else:
+                                    states[d], metrics = step_fn(
+                                        states[d], global_nets[d],
+                                        None if last_nets is None else last_nets[d],
+                                        imgs, labels, valid, lr, flip, dropout_keep=keep)
+                                # on-device running sums: the reported loss is
+                                # the all-step mean, as on the sequential path
+                                accs[d] += torch.stack(metrics, dim=1)
                             step_no += 1
                         logger.info("parallel group %s epoch %d/%d done",
                                     group, epoch + 1, self.local_epoch)
-            sums = acc.cpu().numpy()
+            sums = np.concatenate([a.cpu().numpy() for a in accs])
             if use_cache:
                 del g_stacked, l_stacked
             for (backbone, fc, bce), cid, loss_sum in zip(
-                    cp.group_client_states(state, len(group)), group, sums[:, 0]):
+                    self._slot_members(states, len(group)), group, sums[:, 0]):
                 client = self.clients[cid]
                 client.keep_local_run(backbone, fc, bce, loss_sum / max(step_no, 1))
                 losses.append(client.last_loss)
@@ -535,20 +626,23 @@ class Server:
                     fcs.append(client.global_fc)
                 if self.local_eval_callback is not None and cid in self.local_candidates:
                     self.local_eval_callback(self, client)
-            del state
+            del states
 
         logger.info("round %d (parallel) avg client loss %.5f",
                     self.global_round, float(np.mean(losses)))
         self._aggregate(models, fcs, sizes)
         return {"avg_loss": float(np.mean(losses))}
 
-    def _train_round_parallel_plain(self) -> Dict[str, float]:
+    def _train_round_parallel_plain(self, mesh: Optional[Mesh] = None) -> Dict[str, float]:
         """The plain objective's lockstep round (JAX server.py:634-728): the
-        same groups, feed and wrap-around over each member's own data at
-        ``data.batch_size``, a constant lr, no FC averaging."""
+        same groups, slots, feed and wrap-around over each member's own
+        data at ``data.batch_size``, a constant lr, no FC averaging."""
         cfg = self.cfg
         self._round_start()
-        K = self._lockstep_group_size()
+        mesh = self._client_mesh(mesh)
+        devs = cp.client_sharding(mesh)
+        K = self._lockstep_group_size(mesh)
+        L = K // len(devs)
         if len({self.clients[cid].num_classes
                 for cid in self.current_client_list}) > 1:
             raise ValueError("plain client-parallel requires uniform local "
@@ -559,7 +653,7 @@ class Server:
                 self.backbone, margin=cfg.loss.loss, s=cfg.loss.margin_s,
                 m=cfg.loss.margin_m)
         step_fn = self._parallel_plain_step
-        net = self._group_net("train", K)
+        nets = [self._group_net("train", L, d, dev) for d, dev in enumerate(devs)]
 
         models, sizes, losses = [], [], []
         todo = list(self.current_client_list)
@@ -575,28 +669,33 @@ class Server:
                 loaders.append(loader)
                 backbones.append(_detached(state.backbone))
                 fc_rows.append(state.fc.detach().clone())
-            net.load_state_dict(self._stack_for_group(backbones, pad))
-            state = cp.init_group_state(net, self._stack_for_group(fc_rows, pad), None,
-                                     cfg.optim.lr, cfg.optim.momentum,
-                                     cfg.optim.weight_decay)
+            for net, backbone in zip(nets, self._stack_slots(backbones, pad, mesh)):
+                net.load_state_dict(backbone)
+            states = [cp.init_group_state(net, fc, None, cfg.optim.lr, cfg.optim.momentum,
+                                          cfg.optim.weight_decay)
+                      for net, fc in zip(nets, self._stack_slots(fc_rows, pad, mesh))]
             del backbones, fc_rows
-            gens = [self.clients[cid].generators(self.global_round) for cid in group]
+            gens = [self.clients[cid].generators(self.global_round, devs[k // L])
+                    for k, cid in enumerate(group)]
 
-            acc = torch.zeros(K, device=self.device)
+            accs = [torch.zeros(L, device=dev) for dev in devs]
             step_no = 0
-            with self._group_feed(group, loaders, pad, cfg.data.batch_size) as (
+            with self._group_feed(group, loaders, pad, cfg.data.batch_size, devs) as (
                     feed, steps_per_epoch):
                 with self.timer.span("phase/local_train"):
                     for _ in range(self.local_epoch * steps_per_epoch):
-                        imgs, labels, valid = next(feed)
-                        flips, keep = self._group_draws(group, pad, step_no, imgs, gens)
-                        state, loss = step_fn(state, imgs, labels, valid, lr, flips,
-                                              dropout_keep=keep)
-                        acc += loss
+                        slots = next(feed)
+                        flips, keeps = self._group_draws(
+                            group, pad, step_no, [x for b in slots for x in b[0]], gens)
+                        for d, (imgs, labels, valid) in enumerate(slots):
+                            flip, keep = self._slot_draws(flips, keeps, d, L)
+                            states[d], loss = step_fn(states[d], imgs, labels, valid, lr,
+                                                      flip, dropout_keep=keep)
+                            accs[d] += loss
                         step_no += 1
-            sums = acc.cpu().numpy()
+            sums = np.concatenate([a.cpu().numpy() for a in accs])
             for (backbone, fc, _), cid, loss_sum in zip(
-                    cp.group_client_states(state, len(group)), group, sums):
+                    self._slot_members(states, len(group)), group, sums):
                 client = self.clients[cid]
                 client.keep_plain_run(backbone, fc, float(loss_sum) / max(step_no, 1))
                 losses.append(client.last_loss)
@@ -604,7 +703,7 @@ class Server:
                 models.append(client.trained_backbone)
                 if self.local_eval_callback is not None and cid in self.local_candidates:
                     self.local_eval_callback(self, client)
-            del state
+            del states
 
         logger.info("round %d (parallel plain) avg client loss %.5f",
                     self.global_round, float(np.mean(losses)))

@@ -9,7 +9,9 @@ repository's ``ijbc_all.py``, with its flags plus ``--device``.
 layout) or a JAX ``.npz``.  The aligned images come from
 ``<root-path>/IJBC_imgs.npy`` when it exists, else from the loose crops
 (cv2 needed).  It runs on ``cuda`` by default (raising without a GPU) with
-the device engine; ``--device cpu`` runs the host engine on the CPU.
+the device engine; ``--device cpu`` runs the host engine on the CPU.  On
+a host with more than one GPU the embed runs over every visible GPU (the
+mesh's ``data`` axis); the device engine's scoring stays on the first.
 Appends ``<result-dir>/ijbc-1:1/log.txt`` (the TPR@FPR table; the scores go
 to ``ijbc.npy``) and ``<result-dir>/ijbc-1:n/log.txt`` (top-k, TPIR@FPIR).
 """

@@ -19,6 +19,10 @@ local_all.py:224-454), with its flags plus ``--device``:
   ``--gallery_data_dir`` (``local_gallery_<N>``, global labels, as
   ``split_dataset/split_FL.py`` writes it) and the open-set TPIR@FPIR.
 
+On a host with more than one GPU the embeds and the 1:1 histograms run
+over every visible GPU (the mesh's ``data`` axis, ``parallel/mesh.py::
+auto_data_mesh``), as the JAX CLI's run over every device.
+
 A ``synth:`` spec as ``--data_dir`` (the training run's string) evaluates
 on the device-generated universe: the veri set is its veri split and each
 client's 1:n gallery is its own train images, as ``split_FL.py`` routes

@@ -8,26 +8,63 @@ kernel on the card, its plain version on the CPU), and the TPR@FPR table
 falls out of the cumulative histogram.  Features stay on the device until
 the (2001, 2) histogram comes back to the host.
 
-Not ported: the multi-device split (``pairwise_roc_histogram_sharded``),
-which only applies with more than one GPU (ROADMAP).
+With a mesh (by default every visible GPU of a run on the card, as the JAX
+package takes ``data_mesh()`` when more than one device is visible) the
+j-rows are split over its ``data`` axis (``pairwise_roc_histogram_sharded``):
+every device counts the replicated target rows against its own contiguous
+slice of rows, and the partial histograms are summed on the caller's
+device.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from .roc_hist import NUM_BINS, roc_histogram
+from ..parallel.mesh import Mesh, auto_data_mesh, replicated, shard_over
+from .roc_hist import NUM_BINS, roc_histogram, roc_histogram_range
+
+
+def pairwise_roc_histogram_sharded(mesh: Mesh, feats: torch.Tensor,
+                                   labels: torch.Tensor, target_size: int,
+                                   axis: str = "data") -> torch.Tensor:
+    """(2 * NUM_BINS,) int64 histogram of the target-first (N, E) feats with
+    the j-rows split over ``mesh``'s ``axis`` (JAX
+    ``pairwise_roc_histogram_sharded``): the target rows replicated on
+    every device, device d counting them against rows [d*S, (d+1)*S)
+    (S = ceil(N / D); a device may hold no rows), in global row indices;
+    the partial histograms summed on ``feats``' device in device order."""
+    feats = feats.float().contiguous()
+    labels = labels.to(device=feats.device, dtype=torch.int32).contiguous()
+    t = max(0, min(int(target_size), feats.shape[0]))
+    devs = mesh.axis_devices(axis)
+    step = -(-feats.shape[0] // len(devs))
+    parts = zip(replicated(mesh, feats[:t], axis), replicated(mesh, labels[:t], axis),
+                shard_over(mesh, feats, axis), shard_over(mesh, labels, axis))
+    hists = [roc_histogram_range(ft, lt, rows, lr, d * step)
+             for d, (ft, lt, rows, lr) in enumerate(parts)]
+    out = torch.zeros(2 * NUM_BINS, dtype=torch.int64, device=feats.device)
+    for h in hists:
+        out += h.to(feats.device)
+    return out
 
 
 def pairwise_roc_histogram(feats: torch.Tensor, labels: torch.Tensor,
-                           target_size: int) -> np.ndarray:
+                           target_size: int, mesh: Optional[Mesh] = None
+                           ) -> np.ndarray:
     """(N, E) l2-normalised feats, target rows first -> (2001, 2) int64
-    [pos, neg] pair-count histogram on the host."""
-    hist = roc_histogram(feats.float().contiguous(),
-                         labels.to(torch.int32).contiguous(), target_size)
+    [pos, neg] pair-count histogram on the host.  The rows are split over
+    ``mesh``'s ``data`` axis when it has more than one device (default: the
+    auto layout, every visible GPU of a run on the card)."""
+    if mesh is None:
+        mesh = auto_data_mesh(feats.device)
+    if mesh is not None and mesh.shape["data"] > 1:
+        hist = pairwise_roc_histogram_sharded(mesh, feats, labels, target_size)
+    else:
+        hist = roc_histogram(feats.float().contiguous(),
+                             labels.to(torch.int32).contiguous(), target_size)
     return hist.cpu().numpy().reshape(NUM_BINS, 2)
 
 
@@ -77,7 +114,8 @@ def reorder_target_first(feats: torch.Tensor, labels: np.ndarray,
 
 
 def client_roc(feats: torch.Tensor, labels: np.ndarray, start_id: int,
-               end_id: int) -> list:
-    """Full per-client 1:1 ROC: reorder, histogram, TPR table (-1..-6)."""
+               end_id: int, mesh: Optional[Mesh] = None) -> list:
+    """Full per-client 1:1 ROC: reorder, histogram (over ``mesh``, default
+    the auto layout), TPR table (-1..-6)."""
     f, l, tsize = reorder_target_first(feats, labels, start_id, end_id)
-    return tpr_at_fpr_table(pairwise_roc_histogram(f, l, tsize))
+    return tpr_at_fpr_table(pairwise_roc_histogram(f, l, tsize, mesh))

@@ -37,10 +37,13 @@ member's own generator and passes them stacked.
 the global model is shared and the last-round model per client; the
 cached form's g/l caches and ``idx`` are per client; lr is shared.
 
-``client_sharding``, ``shard_stacked_tree`` and ``replicate_tree`` of the
-JAX module place stacked trees on a mesh's client axis.  On one card they
-have no counterpart, nor does ``parallel_fedavg``: the round aggregates
-with ``streaming_weighted_average``.
+Over a mesh (``parallel/mesh.py``) the group spreads over the ``client``
+axis: with K = ``lockstep`` x the axis size, device d holds members
+[d*L, (d+1)*L) (L = ``lockstep``) in a stacked state of its own, and one
+step a device advances them.  ``client_sharding``, ``shard_stacked_tree``
+and ``replicate_tree`` are the JAX module's placements of stacked and
+shared trees on that axis, each as one tree per device; ``parallel_fedavg``
+is the round-end weighted average over the members of every device.
 """
 
 from __future__ import annotations
@@ -57,9 +60,50 @@ from ..federated.state import train_preprocess
 from ..federated.trainer import (StepMetrics, _sgd_step, check_cached_contrastive,
                                  make_branch_objective, make_plain_objective,
                                  proximal_sq)
-from .fedavg import stack_trees, unstack_tree
+from .fedavg import stack_trees, streaming_weighted_average, unstack_tree
+from .mesh import Mesh
 
 StateDict = Dict[str, torch.Tensor]
+
+
+def client_sharding(mesh: Mesh) -> List[torch.device]:
+    """The device of each slot of ``mesh``'s ``client`` axis, in order (JAX
+    ``client_sharding``: a stacked tree's leading axis split over it)."""
+    return mesh.axis_devices("client")
+
+
+def shard_stacked_tree(mesh: Mesh, tree: StateDict) -> List[StateDict]:
+    """A stacked tree split on its leading (member) axis into one
+    contiguous block per client-axis slot, each block on its device (JAX
+    ``shard_stacked_tree``); the axis must divide the member count."""
+    devs = client_sharding(mesh)
+    k = len(next(iter(tree.values())))
+    if k % len(devs):
+        raise ValueError(f"{k} stacked members do not split over a {len(devs)}-wide "
+                         f"client axis")
+    step = k // len(devs)
+    return [{name: v[d * step:(d + 1) * step].to(dev, non_blocking=True)
+             for name, v in tree.items()} for d, dev in enumerate(devs)]
+
+
+def replicate_tree(mesh: Mesh, tree: StateDict) -> List[StateDict]:
+    """``tree`` on every client-axis slot's device (JAX ``replicate_tree``)."""
+    return [{name: v.to(dev, non_blocking=True) for name, v in tree.items()}
+            for dev in client_sharding(mesh)]
+
+
+def parallel_fedavg(shards: List[StateDict], weights, device) -> StateDict:
+    """Round-end aggregation over the member axis of every slot's stacked
+    tree (JAX ``parallel_fedavg``): each member's state copied to
+    ``device`` and ``streaming_weighted_average`` in member order (slot by
+    slot), so the result is the one-device round's, bit for bit, given
+    equal members.  ``weights`` has one entry a member."""
+    members = [{k: v.to(device) for k, v in m.items()}
+               for shard in shards
+               for m in unstack_tree(shard, len(next(iter(shard.values()))))]
+    if len(members) != len(weights):
+        raise ValueError(f"{len(members)} members but {len(weights)} weights")
+    return streaming_weighted_average(members, weights)
 
 
 # leaves whose op autocast runs in its lower-precision dtype (conv2d,

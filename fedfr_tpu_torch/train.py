@@ -37,11 +37,17 @@ and a ``memory: device in_use ... MB peak ... MB | host maxrss ... MB``
 line; at the end the CLI's own spans (``train_round``, ``eval``).
 ``--profile`` writes a ``torch.profiler`` trace of round 0 to
 ``<output_dir>/torch_trace/trace.json``.
-``--lockstep K`` (K > 1) trains the sampled clients K at a time in lockstep
-(``Server.train_round_parallel``, one stacked step a dispatch, as the JAX
-CLI's client-parallel round on one chip); ``--remat`` checkpoints the
-backbone's residual blocks (their activations recomputed in the backward),
-in either round.
+On a host with more than one GPU the run takes every visible GPU
+(``CUDA_VISIBLE_DEVICES`` limits them), as the JAX CLI takes every device:
+each embed runs over all of them (the data axis), each client's 1:1 ROC
+splits its rows over them, and the clients train over them
+(``Server.train_round_parallel`` on ``make_mesh()``, every device on the
+client axis; training.log says "client-parallel training over N devices
+x lockstep L"), one process driving every card.  ``--lockstep L`` (L > 1)
+stacks L clients a device, one stacked step a dispatch, also on one card;
+``--remat`` checkpoints the backbone's residual blocks (their activations
+recomputed in the backward), in either round.  The memory line then reads
+each device's in-use and peak MB.
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ from .data.datasets import AllClientData
 from .evalsuite.local_eval import LocalVerificationCallback
 from .evalsuite.verification import BinVerificationCallback
 from .federated.server import Server
+from .parallel.mesh import Mesh, as_device, make_mesh, visible_devices
 from .utils.checkpoint import RoundCheckpointer
 from .utils.device import resolve_device
 from .utils.logging import init_logging
@@ -262,7 +269,7 @@ def attach_callbacks(cfg: FedFRConfig, server: Server, data: AllClientData,
             eval_net, cfg.runtime.val_targets, cfg.data.val_root,
             batch_size=cfg.data.eval_batch_size, logger=logger,
             image_size=(cfg.data.image_size, cfg.data.image_size),
-            device=server.device)
+            device=server.device, mesh=server.data_mesh)
 
     local_cb = None
     if cfg.data.local_veri_dir and (data.synthetic_universe is not None
@@ -271,7 +278,7 @@ def attach_callbacks(cfg: FedFRConfig, server: Server, data: AllClientData,
             eval_net, eval_bce, data.veri_dataset(cfg.data.local_veri_dir),
             cfg.runtime.output_dir, batch_size=cfg.data.eval_batch_size,
             device=server.device, num_workers=cfg.data.num_workers,
-            prefetch=cfg.data.prefetch)
+            prefetch=cfg.data.prefetch, mesh=server.data_mesh)
 
     def eval_callback(server):
         if bin_cb is None:
@@ -321,17 +328,23 @@ class Training:
     ckpt: RoundCheckpointer  # the resume state
     timer: SpanTimer  # the CLI's own spans: train_round, eval
     trace_dir: Optional[str] = None  # --profile: round 0's trace goes here
-    lockstep: bool = False  # the rounds run Server.train_round_parallel
+    mesh: Optional[Mesh] = None  # the rounds run Server.train_round_parallel(mesh)
 
     @property
     def done(self) -> bool:
         return self.server.global_round >= self.cfg.fed.total_rounds
 
 
-def setup(args) -> Training:
+def setup(args, devices: Optional[List] = None) -> Training:
+    """The run's config, logging, data, server, callbacks and resume
+    state.  ``devices``: the run's device list (default every visible GPU
+    once each, or the CPU under ``--device cpu``; a device may repeat, as
+    two shards of one card)."""
     check_flags(args)
     cfg = build_config(args)
     resolve_device(cfg.runtime.device)  # no GPU and no --device cpu: raise now
+    devices = [as_device(d) for d in (devices if devices
+                                      else visible_devices(cfg.runtime.device))]
     os.makedirs(cfg.runtime.output_dir, exist_ok=True)
     logger = init_logging(cfg.runtime.output_dir)
     logger.info("config: %s", cfg.to_json())
@@ -341,7 +354,7 @@ def setup(args) -> Training:
                     "the port's modules have one layout and its states stay "
                     "on the device")
     data = AllClientData(cfg, include_public=cfg.fed.add_pretrained_data)
-    server = Server(cfg, data)
+    server = Server(cfg, data, devices=devices)
     spent = {"local_eval": 0.0}
     bin_cb, local_cb = attach_callbacks(cfg, server, data, logger, spent)
     logger.info("local veri candidates %s", server.local_candidates)
@@ -365,12 +378,13 @@ def setup(args) -> Training:
             best = ckpt.last_extra.get("best")
             if bin_cb is not None and best and len(best) == len(bin_cb.highest):
                 bin_cb.highest = [tuple(b) for b in best]
-    # one card: the JAX CLI's client-parallel round over a one-device
-    # client axis, K = --lockstep clients a group (train.py:180-187)
-    lockstep = cfg.fed.client_parallel and cfg.fed.lockstep > 1
-    if lockstep:
+    # the JAX CLI's client-parallel round (train.py:176-187): every device
+    # on the client axis, K = --lockstep x devices clients a group
+    mesh = None
+    if cfg.fed.client_parallel and (len(devices) > 1 or cfg.fed.lockstep > 1):
+        mesh = make_mesh(devices=devices)
         logger.info("client-parallel training over %d devices x lockstep %d "
-                    "(%s objective)", 1, cfg.fed.lockstep,
+                    "(%s objective)", mesh.shape["client"], cfg.fed.lockstep,
                     "branch" if cfg.fed.add_pretrained_data else "plain")
     trace_dir = None
     if args.profile:
@@ -378,26 +392,34 @@ def setup(args) -> Training:
         logger.info("profiling first round to %s", trace_dir)
     logger.info("=== Start Federated learning ===")
     return Training(cfg, logger, server, bin_cb, local_cb, spent, ckpt,
-                    SpanTimer(server.device), trace_dir, lockstep)
+                    SpanTimer(server.devices), trace_dir, mesh)
 
 
-def log_memory(logger: logging.Logger, device: torch.device) -> Dict[str, float]:
-    """The JAX CLI's per-round memory line (train.py:238-262): the card's
+def log_memory(logger: logging.Logger, devices) -> Dict[str, float]:
+    """The JAX CLI's per-round memory line (train.py:238-262): each card's
     allocated and peak allocated MB (``torch.cuda``), the host's peak RSS;
-    returns the numbers (device ones None on the CPU, where they are not
-    measured)."""
+    returns the numbers (``device_*`` the first device's, ``devices`` each
+    card's by name; None on the CPU, where they are not measured)."""
     rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e3
-    if device.type != "cuda":
+    cards = [d for d in dict.fromkeys(as_device(d) for d in devices) if d.type == "cuda"]
+    if not cards:
         logger.info("memory: device in_use not measured (cpu) | host maxrss "
                     "%.0f MB", rss)
         return {"device_in_use_mb": None, "device_peak_mb": None,
-                "host_maxrss_mb": rss}
-    in_use = torch.cuda.memory_allocated(device) / 1e6
-    peak = torch.cuda.max_memory_allocated(device) / 1e6
-    logger.info("memory: device in_use %.0f MB peak %.0f MB | host maxrss "
-                "%.0f MB", in_use, peak, rss)
-    return {"device_in_use_mb": in_use, "device_peak_mb": peak,
-            "host_maxrss_mb": rss}
+                "host_maxrss_mb": rss, "devices": {}}
+    per = {str(d): (torch.cuda.memory_allocated(d) / 1e6,
+                    torch.cuda.max_memory_allocated(d) / 1e6) for d in cards}
+    if len(per) == 1:
+        text = "in_use %.0f MB peak %.0f MB" % next(iter(per.values()))
+    else:
+        text = ", ".join("%s in_use %.0f MB peak %.0f MB" % (name, *v)
+                         for name, v in per.items())
+    logger.info("memory: device %s | host maxrss %.0f MB", text, rss)
+    first = next(iter(per.values()))
+    return {"device_in_use_mb": first[0], "device_peak_mb": first[1],
+            "host_maxrss_mb": rss,
+            "devices": {name: {"in_use_mb": v[0], "peak_mb": v[1]}
+                        for name, v in per.items()}}
 
 
 def run_round(t: Training) -> Dict:
@@ -412,7 +434,7 @@ def run_round(t: Training) -> Dict:
     with torch_trace(t.trace_dir if traced else None, server.device):
         t0 = time.perf_counter()
         with t.timer.span("train_round"):  # the span ends synchronized
-            stats = (server.train_round_parallel() if t.lockstep
+            stats = (server.train_round_parallel(t.mesh) if t.mesh is not None
                      else server.train_round())
         train_s = time.perf_counter() - t0
     if traced:
@@ -447,7 +469,7 @@ def run_round(t: Training) -> Dict:
                 "bin eval %.3f s, resume-state save %s s", rnd, train_s, local_s,
                 bin_s, "none" if ckpt_s is None else f"{ckpt_s:.3f}")
     server.timer.report(logger)  # the cumulative per-phase breakdown
-    memory = log_memory(logger, server.device)
+    memory = log_memory(logger, server.devices)
     return {"round": rnd, "clients": clients, "avg_loss": stats["avg_loss"],
             "train_round_s": train_s, "local_eval_s": local_s,
             "bin_eval_s": bin_s, "ckpt_save_s": ckpt_s,

@@ -3,11 +3,13 @@
 The port's counterpart of ``fedfr_tpu/utils/profiling.py``:
 
 * ``SpanTimer`` — named wall-clock spans with running totals, with the JAX
-  package's API and ``report`` line.  On a CUDA device a span ends with
-  ``torch.cuda.synchronize(device)``, the counterpart of the JAX server's
-  completion barrier (``fedfr_tpu/federated/server.py:182-191``): PyTorch
-  returns before the device finishes, so without it a span would time only
-  the enqueue.  The barrier costs one idle gap per span end.
+  package's API and ``report`` line.  A span ends with
+  ``torch.cuda.synchronize`` of every CUDA device it was given (a run's
+  whole mesh), the counterpart of the JAX server's completion barrier
+  (``fedfr_tpu/federated/server.py:182-191``): PyTorch returns before the
+  devices finish, so without it a span would time only the enqueue, or
+  end before the other cards finish.  The barrier costs one idle gap per
+  span end.
 * ``torch_trace(log_dir, device)`` — a ``torch.profiler`` trace (host
   activity, plus the device's on CUDA) written as a Chrome trace under
   ``log_dir``; the counterpart of ``xla_trace``.  Open the JSON in
@@ -20,9 +22,11 @@ import contextlib
 import logging
 import os
 import time
-from typing import Dict, Iterator, Optional, Union
+from typing import Dict, Iterator, Optional, Sequence, Union
 
 import torch
+
+from ..parallel.mesh import synchronize
 
 logger = logging.getLogger("fedfr_tpu_torch.profiling")
 
@@ -48,16 +52,16 @@ def torch_trace(log_dir: Optional[str],
 
 
 class SpanTimer:
-    """Named wall-clock spans with running totals.  ``device``: a CUDA
-    device is synchronized at each span's end, so that a span holds the
-    device work it enqueued."""
+    """Named wall-clock spans with running totals.  ``device``: a device or
+    a list of them; every CUDA device among them is synchronized at each
+    span's end, so that a span holds the device work it enqueued."""
 
-    def __init__(self, device: Optional[Union[str, torch.device]] = None):
+    def __init__(self, device: Union[None, str, torch.device,
+                                     Sequence[Union[str, torch.device]]] = None):
         self.totals: Dict[str, float] = {}
         self.counts: Dict[str, int] = {}
-        dev = torch.device(device) if device is not None else None
-        self._sync = ((lambda: torch.cuda.synchronize(dev))
-                      if dev is not None and dev.type == "cuda" else (lambda: None))
+        self.devices = ([] if device is None else [device]
+                        if isinstance(device, (str, torch.device)) else list(device))
 
     @contextlib.contextmanager
     def span(self, name: str) -> Iterator[None]:
@@ -65,7 +69,7 @@ class SpanTimer:
         try:
             yield
         finally:
-            self._sync()
+            synchronize(self.devices)
             dt = time.perf_counter() - t0
             self.totals[name] = self.totals.get(name, 0.0) + dt
             self.counts[name] = self.counts.get(name, 0) + 1

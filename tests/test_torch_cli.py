@@ -270,7 +270,7 @@ def test_chip_smoke_paths_phase_rehearsed_on_cpu(smoke_root):
 
 def test_chip_smoke_lockstep_phase_rehearsed_on_cpu(tmp_path):
     """The smoke's phase 11 at toy size on the CPU: --lockstep 2 over 3
-    clients (groups [0, 1] and [2 + a pad]) for 2 rounds with its checks
+    clients (groups [0, 1] and [2 + a pad]) for 1 round with its checks
     (the lockstep and group lines, exports, local_log.txt, a changed global
     model), the cached step with --remat, the plain objective, then the
     step checks (sphnet20, and iresnet18 with --remat, against sequential
@@ -286,6 +286,27 @@ def test_chip_smoke_lockstep_phase_rehearsed_on_cpu(tmp_path):
         step_batch=8, device="cpu", network="toy", embedding=16, image_size=IMG,
         batch=8, local_epochs=1, eval_batch=16)
     assert list(by_part) == ["11a", "11b", "11c"]
+    assert all(v == NO_LAUNCHES for v in by_part.values())
+
+
+def test_chip_smoke_mesh_phase_rehearsed_on_cpu(tmp_path):
+    """The smoke's phase 12 at toy size on two shards of the CPU: the
+    sharded ROC bit for bit (12a), the data-axis embed of a tiny synth:
+    public set (12b), the busy-share windows (12g, not measured on the
+    CPU), run.sh's round over the mesh with 5 clients for 2
+    rounds against the one-device round at --lockstep 2 in bf16 and fp32
+    (12c, 12e), the cached and plain rounds over the mesh (12d), with its
+    log-line, export and local_log.txt checks; no launch is counted here."""
+    devices = chip_smoke.mesh_devices("cpu")
+    assert devices == [torch.device("cpu")] * 2
+    spec = ("synth:image_size=16,imgs_min=2,imgs_max=2,public_ids=20,public_imgs=40,"
+            "veri_ids=40,veri_imgs=2")
+    by_part = chip_smoke.phase_mesh(
+        str(tmp_path / "mesh"), devices, ids=IDS, pub_ids=6, roc_shape=(301, 40, 16),
+        embed_spec=spec, embed_sample=16, busy_images=16, device="cpu", network="toy",
+        embedding=16,
+        image_size=IMG, batch=8, local_epochs=1, eval_batch=16)
+    assert list(by_part) == ["12c", "12d_cached", "12d_plain"]
     assert all(v == NO_LAUNCHES for v in by_part.values())
 
 

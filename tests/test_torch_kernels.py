@@ -178,6 +178,65 @@ def test_roc_hist_kernel_matches_plain(n, t, e, dyadic):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,t,cuts", [
+    (4099, 1000, (0, 2050, 4099)),                  # two shards
+    (4099, 1000, (0, 1367, 2734, 4099)),            # three
+    (4099, 1000, (0, 513, 1026, 4099, 4099)),       # an empty shard
+    (4099, 129, (0, 100, 4099)),                    # the targets span shards
+])
+def test_roc_hist_ranges_add_up_bitwise(n, t, cuts):
+    """The kernel's j-range form keeps each pair's fp32 FFMA chain, so the
+    ranges' histograms add up bit for bit to the whole on unit rows at the
+    reference width (no tolerance: not dyadic), one launch a non-empty
+    range; and the mesh's sharded histogram over two shards of this card
+    equals the whole."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    import importlib
+
+    from fedfr_tpu_torch.parallel.mesh import data_mesh
+    rh = importlib.import_module("fedfr_tpu_torch.ops.roc_histogram")
+    gen = torch.Generator(device="cuda").manual_seed(n + t)
+    feats = _unit_rows(n, 512, gen)
+    labels = (torch.arange(n, device="cuda", dtype=torch.int32) // 40).contiguous()
+    whole = roc_hist.roc_histogram(feats, labels, t)
+    before = roc_hist.roc_hist_launches
+    parts = [roc_hist.roc_histogram_range(feats[:t], labels[:t], feats[a:b].contiguous(),
+                                          labels[a:b].contiguous(), a)
+             for a, b in zip(cuts, cuts[1:])]
+    torch.cuda.synchronize()
+    assert roc_hist.roc_hist_launches - before == sum(b > a for a, b in zip(cuts, cuts[1:]))
+    assert torch.equal(sum(parts), whole)
+    sharded = rh.pairwise_roc_histogram_sharded(data_mesh(devices=["cuda:0"] * 2),
+                                                feats, labels, t)
+    assert torch.equal(sharded, whole)
+
+
+@pytest.mark.cuda
+def test_launchers_leave_the_current_device():
+    """Each launcher and config call runs on its tensors' device (the last
+    card) and gives the caller its current device back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    torch.cuda.set_device(0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    pub, loc = _unit_rows(300, 512, gen).to(dev), _unit_rows(70, 512, gen).to(dev)
+    max_sim.max_cosine_similarity(pub, loc)
+    assert torch.cuda.current_device() == 0
+    labels = torch.zeros(300, dtype=torch.int32, device=dev)
+    roc_hist.kernel_config(dev.index)
+    roc_hist.roc_histogram(pub, labels, 50)
+    assert torch.cuda.current_device() == 0
+    universe = synthetic.build_fl_synthetic(synthetic.parse_synth_spec(
+        "synth:image_size=16,imgs_min=4,imgs_max=4,public_ids=4,public_imgs=8,"
+        "veri_ids=2,veri_imgs=2,clients=1,ids_per_client=2"), device=dev)
+    universe["public"].device_batch(np.arange(4))
+    assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(dev)
+
+
+@pytest.mark.cuda
 def test_roc_hist_kernel_empty_target_does_not_launch():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")

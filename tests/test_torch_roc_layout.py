@@ -32,16 +32,24 @@ def _dyadic(n, e, seed):
     (9, 0, 128, 32),        # E = 0 still gets one K-slice of zeros
 ])
 def test_kernel_operand_is_k_major_and_zero_padded(n, e, rows, k):
+    """The targets (the first third of the rows) K-major in columns 0..,
+    every row from column ``b_col`` on (T rounded up to ``rows``), zeros
+    in every other column and past E."""
     feats = torch.from_numpy(
         np.random.default_rng(n + e).standard_normal((n, e)).astype(np.float32))
-    out = roc_hist.kernel_operand(feats, rows, k)
-    e_pad, n_pad = out.shape
+    t = n // 3
+    out, b_col = roc_hist.kernel_operand(feats[:t], feats, rows, k)
+    e_pad, n_cols = out.shape
     assert out.dtype == torch.float32 and out.is_contiguous()
+    assert b_col % rows == 0 and t <= b_col < t + rows
+    n_pad = n_cols - b_col
     assert n_pad % rows == 0 and n <= n_pad < n + rows
     assert e_pad % k == 0 and max(e, 1) <= e_pad < max(e, 1) + k
-    assert torch.equal(out[:e, :n], feats.t())
+    assert torch.equal(out[:e, :t], feats[:t].t())
+    assert torch.equal(out[:e, b_col:b_col + n], feats.t())
     assert int((out[e:] != 0).sum()) == 0
-    assert int((out[:, n:] != 0).sum()) == 0
+    assert int((out[:, t:b_col] != 0).sum()) == 0
+    assert int((out[:, b_col + n:] != 0).sum()) == 0
 
 
 @pytest.mark.parametrize("n,t,e", [
@@ -53,12 +61,15 @@ def test_plain_histogram_on_the_padded_copy_is_unchanged(n, t, e):
     """Zero K columns add exact zeros to every dot: the plain histogram of
     the kernel's operand, read back row-major, equals the original's."""
     feats, labels = _dyadic(n, e, seed=n + t + e)
-    padded = roc_hist.kernel_operand(feats, 128, 32)
-    back = padded.t()[:n].contiguous()
+    padded, b_col = roc_hist.kernel_operand(feats[:t], feats, 128, 32)
+    back = padded.t()[b_col:b_col + n].contiguous()
+    targets = padded.t()[:t].contiguous()
     assert back.shape == (n, -(-e // 32) * 32)
     want = roc_hist.roc_histogram_plain(feats, labels, t)
     assert int(want.sum()) == t * n - t * (t + 1) // 2
     assert torch.equal(roc_hist.roc_histogram_plain(back, labels, t), want)
+    assert torch.equal(roc_hist.roc_histogram_range_plain(
+        targets, labels[:t], back, labels, 0), want)
 
 
 @pytest.mark.parametrize("i_tiles,j_tiles,sms,per_sm,want", [
