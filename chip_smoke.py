@@ -3,6 +3,7 @@
     python3 chip_smoke.py              # every phase, on one card
     python3 chip_smoke.py --phase 12   # phases 1, 2 and 12, on every card
     python3 chip_smoke.py --phase 12g  # phases 1, 2 and 12g alone
+    python3 chip_smoke.py --phase 13   # phases 1, 2 and 13, on every card
 
 Phases, in order (any failure raises and the script exits non-zero):
 
@@ -192,7 +193,7 @@ Phases, in order (any failure raises and the script exits non-zero):
         beside the same work on one device; ms per client-step of both
         (``--phase 12g`` alone: 12,288 images, 6 dispatches);
    12c  run.sh's round over the mesh through the CLI's setup, run_round and
-        finish, 2 x devices + 1 clients x 100 IDs x 8 images (so pad
+        finish, devices + 1 clients x 100 IDs x 8 images (so pad
         slots), 1 local epoch then 4, 2 rounds, with ``--HN_threshold -1``
         (every public image mined, so that no near-threshold score can
         move a client's batches); then the same clients on one device at
@@ -207,10 +208,35 @@ Phases, in order (any failure raises and the script exits non-zero):
         run, pad slots included) of the mesh and the one-device round, and
         each device's peak memory.
 
+13. pretrain_mesh — pretraining on every GPU of the machine, or over two
+   shards of ``cuda:0`` (phase 12's ``mesh_devices``), at phase 9's widths
+   on ``synth:public_imgs=61440`` (6,000 IDs):
+   item 9  which of cv2, PIL, g++ and libjpeg the machine has; with cv2 or
+        PIL a rec of 8,192 JPEG images of 112x112 at quality 95, read by the
+        port's ``BatchLoader`` (6 decode threads): images/s beside the
+        public embed's ~23,000;
+   13a  the sharded full-softmax and sampled (rate 0.1) Partial FC at 512
+        x 512 x 6,000 and x 6,001 classes (a padded FC), fp32 with TF32
+        off: loss, feature and weight gradients within 1e-5 (relative) of
+        the one-shard function (full) and of the same W-shard sample as one
+        softmax on one device (sampled), the padded rows' gradient 0;
+   13b  the CLI over the mesh, launch counts set to 0 before its runs and
+        read after: 1 epoch of the full softmax, 1 epoch at --sample_rate
+        0.1 on ``synth:public_imgs=6144`` (12 steps), "partial-FC over W
+        model shards", fc.pth, the resume state's padded rows, the replicas
+        bit for bit shard 0's, one synth_gen launch a batch; then 12 steps
+        of the full softmax on that set over the mesh, on one device, and
+        on one device with the trunk in fp32: every step's loss within
+        MESH_TOL_FACTOR x the one-device run's own bf16-vs-fp32 distance;
+   13c  both losses' step ms and samples/s over the mesh and on one device
+        (host clock, every device synchronized), each card's peak memory,
+        and each card's busy share over 4 full-softmax steps (12g's
+        ``card_busy``).
+
 The line before the last is a JSON object with every hand-written kernel
-(its ``launches`` summed over phases 4-12, and by phase, 7a-7d apart, 11a-11c
+(its ``launches`` summed over phases 4-13, and by phase, 7a-7d apart, 11a-11c
 and 12c-12d together); the last line is the device record.  ``--phase 12``
-prints no kernel line.  Widths are the reference's (sphere64 and iresnet100, E=512,
+and ``--phase 13`` print no kernel line.  Widths are the reference's (sphere64 and iresnet100, E=512,
 112x112, batch 256); counts are cut:
   * (phases 4-7; phase 8 runs the reference's data, cut as listed there)
     2 clients x 100 IDs x 8 train images (reference: 40 clients x 100 IDs);
@@ -232,10 +258,13 @@ prints no kernel line.  Widths are the reference's (sphere64 and iresnet100, E=5
     pairs and 1:n lists at the protocol's counts;
   * (phase 11) 3 clients x 100 IDs x 8 images; 1 local epoch, 1 round
     for each of 11a-11c (12c runs two lockstep rounds);
-  * (phase 12) 2 x devices + 1 clients x 100 IDs x 8 images, a 128-image
+  * (phase 12) devices + 1 clients x 100 IDs x 8 images, a 128-image
     public set (64 IDs x 2), 4 veri images an ID; 1 local epoch then 4, 2
     rounds for 12c, 1 round each for 12d; 12b 61,440 of 420,671 public
-    images.
+    images;
+  * (phase 13) the public set cut as phase 9's for the full epoch and to
+    6,144 images (all 6,000 IDs) for the sampled epoch and the comparison's
+    12 steps (reference: 16 epochs of 420,671 images).
 """
 
 from __future__ import annotations
@@ -264,20 +293,22 @@ from fedfr_tpu_torch import ijbc_all, ijbc_conti
 from fedfr_tpu_torch import local_all as local_all_cli
 from fedfr_tpu_torch import pretrain as pretrain_cli
 from fedfr_tpu_torch import train as train_cli
-from fedfr_tpu_torch.data import codec, synthetic, write_split
+from fedfr_tpu_torch.data import BatchLoader, FaceRecordDataset, codec, synthetic, write_split
 from fedfr_tpu_torch.data.pipeline import DevicePrefetcher
 from fedfr_tpu_torch.evalsuite import ijbc
 from fedfr_tpu_torch.federated.state import normalize_images
 from fedfr_tpu_torch.federated.trainer import (branch_objective_kwargs, branch_step_for,
                                                init_client_state)
 from fedfr_tpu_torch.models import BCEModule, build_backbone
+from fedfr_tpu_torch.models.heads import l2_normalize
 from fedfr_tpu_torch.ops._build import build_kernels, build_seconds, ptxas_info
+from fedfr_tpu_torch.ops.margins import MARGINS
 from fedfr_tpu_torch.ops.roc_histogram import tpr_at_fpr_table
 from fedfr_tpu_torch.ops.threefry import prng_key
 from fedfr_tpu_torch.parallel import client_parallel
 from fedfr_tpu_torch.parallel import mesh as mesh_mod
+from fedfr_tpu_torch.parallel import partial_fc
 from fedfr_tpu_torch.parallel.fedavg import stack_trees
-from fedfr_tpu_torch.parallel.partial_fc import num_sampled
 from fedfr_tpu_torch.utils.checkpoint import RoundCheckpointer
 from fedfr_tpu_torch.utils.profiling import TRACE_FILE
 
@@ -1821,34 +1852,46 @@ def with_flag(argv: list, flag: str, value: str) -> list:
 
 
 def time_pretrain_steps(args, dataset, u8: torch.Tensor, labels: torch.Tensor,
-                        iters: int = 10) -> dict:
+                        iters: int = 10, devices=None) -> dict:
     """The pretraining step (full and sampled Partial FC) on one batch
-    (``u8``, ``labels``) of ``dataset`` from the CLI's initial weights: ms
-    per step and samples/s, CUDA events over ``iters`` steps back to back,
-    three runs, after two warm-up steps (host clock on the CPU)."""
-    dev = dataset.device
+    (``u8``, ``labels``) of ``dataset`` from the CLI's initial weights, over
+    ``devices`` (default: the dataset's device alone): ms per step and
+    samples/s over ``iters`` steps back to back, three runs, after two
+    warm-up steps; CUDA events on one card, else the host clock with every
+    device synchronized (medians).  Each card's peak memory over the
+    steps."""
+    devices = devices or [dataset.device]
+    on_card = devices[0].type == "cuda"
     out = {}
     for name, rate in (("full", 1.0), ("sampled", 0.1)):
-        backbone, weight, num_valid, opt, wopt = pretrain_cli.training_state(
-            args, dataset.num_classes, dev)
-        num_sample = num_sampled(rate, weight.shape[0]) if rate < 1.0 else None
-        step = pretrain_cli.make_train_step(args, num_valid, num_sample)
+        t0 = time.perf_counter()
+        state = pretrain_cli.training_state(args, dataset.num_classes, devices)
+        state_s = time.perf_counter() - t0
+        c_pad = sum(w.shape[0] for w in state.weights)
+        num_sample = partial_fc.num_sampled(rate, c_pad, len(devices)) if rate < 1.0 else None
+        step = pretrain_cli.make_train_step(args, state.num_valid, num_sample)
         key = pretrain_cli.step_key(prng_key(args.seed + 7), 0, 0)
 
         def one():
-            return step(backbone, weight, opt, wopt, u8, labels, args.lr, key)
+            return step(state, u8, labels, args.lr, key)
 
         loss = [float(one()) for _ in range(2)][-1]
-        if dev.type == "cuda":
-            ms = cuda_ms(one, 3, f"pretrain {name} step x {iters}", batch=iters)
-        else:
-            t0 = time.perf_counter()
+        cards = list(dict.fromkeys(d for d in devices if d.type == "cuda"))
+        for dev in cards:
+            torch.cuda.reset_peak_memory_stats(dev)
+
+        def steps():
             for _ in range(iters):
                 one()
-            ms = (time.perf_counter() - t0) * 1e3 / iters
+        if on_card and len(devices) == 1:
+            ms = cuda_ms(one, 3, f"pretrain {name} step x {iters}", batch=iters)
+        else:
+            ms = wall_ms(steps, devices) / iters
         out[name] = {"ms_per_step": ms, "samples_per_s": args.batch_size / ms * 1e3,
-                     "loss": loss, "num_sample": num_sample}
-        del backbone, weight, opt, wopt
+                     "loss": loss, "num_sample": num_sample, "state_s": state_s,
+                     "peak_gib": {str(d): torch.cuda.max_memory_allocated(d) / 2**30
+                                  for d in cards} or "not measured"}
+        del state
     return out
 
 
@@ -1897,6 +1940,7 @@ def phase_pretrain(argv: list, setup_argv: list) -> dict:
         rec = pretrain_cli.main(pretrain_cli.build_parser().parse_args(run_argv))
         sync()
         rec["seconds"] = time.perf_counter() - t0
+        del rec["state"]
         figures[name] = rec
         steps += len(rec["epochs"]) * rec["steps_per_epoch"]
         log("pretrain", run=name, seconds=f"{rec['seconds']:.2f}", epochs=rec["epochs"],
@@ -2717,7 +2761,7 @@ def phase_mesh(root: str, devices: list, ids: int, pub_ids: int = 64,
     leaves the current device as it was; 12a the sharded ROC; 12b the
     data-axis embed; 12g each card's busy share while one process drives
     them (an embed pass, the round's training dispatches); 12c run.sh's round over the mesh through the CLI
-    (2 x devices + 1 clients, 2 rounds), then on one device at
+    (devices + 1 clients, 2 rounds), then on one device at
     ``--lockstep`` = devices, in bf16 and in fp32; 12d one round each of
     ``--cache_contrastive`` and the plain objective over the mesh; 12e ms
     per client-step and each device's peak memory.  Returns {part:
@@ -2765,7 +2809,7 @@ def phase_mesh(root: str, devices: list, ids: int, pub_ids: int = 64,
     figures["12g"] = mesh_busy(devices, embed_spec, busy_images, 4, **round_kw)
 
     # 12c: run.sh's round over the mesh, then on one device, in bf16 and fp32
-    n_clients = 2 * nd + 1
+    n_clients = nd + 1
     write_fl_split(root, n_clients=n_clients, ids=ids, imgs_per_id=8, pub_ids=pub_ids,
                    pub_imgs=2, size=round_kw.get("image_size", 112), seed=0, veri_imgs=4)
     write_bin(os.path.join(root, "val", "agedb_30.bin"), n_pairs=1200,
@@ -2897,6 +2941,316 @@ def phase_mesh(root: str, devices: list, ids: int, pub_ids: int = 64,
     return by_part
 
 
+# ---------------------------------------------------------------- phase 13
+
+# 12 steps of 512 over every one of the 6,000 public IDs (~1 image an ID):
+# the sampled run and the one-card comparison's first steps
+SHORT_PRETRAIN_SPEC = "synth:public_imgs=6144"
+# 13a: the sharded losses against the one-shard forms, in fp32 (TF32 off)
+PFC_REL_TOL = 1e-5
+JPEG_IMAGES = 8192
+# the public embed's images/s on one card (PERF.md section 5, phases 8 and
+# 12b), the rate a host decode would have to keep up with
+EMBED_IMAGES_PER_S = 23_000
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max |b| (fp64)."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def jpeg_decode_rate(root: str, n: int = JPEG_IMAGES, size: int = 112,
+                     batch: int = 512, workers: int = 6) -> dict:
+    """ROADMAP item 9's measurement: which of cv2, PIL, g++ and libjpeg the
+    machine has; with cv2 or PIL, a rec of ``n`` JPEG images (quality 95,
+    the smoke's seeded patterns), the codec's decode alone on one thread,
+    and the port's ``BatchLoader`` over the rec (the CLI's 6 decode
+    threads): images/s on the host clock, beside the public embed's
+    rate."""
+    import ctypes.util
+    import importlib.util
+
+    have = {"cv2": importlib.util.find_spec("cv2") is not None,
+            "PIL": importlib.util.find_spec("PIL") is not None,
+            "gxx": shutil.which("g++") is not None,
+            "libjpeg": ctypes.util.find_library("jpeg")}
+    out = {"have": have, "images": n, "embed_images_per_s": EMBED_IMAGES_PER_S}
+    if not (have["cv2"] or have["PIL"]):
+        out["images_per_s"] = "not measured (neither cv2 nor PIL: no JPEG rec can be read here)"
+        return out
+    rng = np.random.default_rng(13)
+    imgs = _noisy(rng, _patterns(rng, n // 8, size), 8)
+    t0 = time.perf_counter()
+    if have["cv2"]:
+        import cv2
+
+        payloads = [cv2.imencode(".jpg", im[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, 95])[1]
+                    .tobytes() for im in imgs]
+        out["encoder"] = "cv2"
+    else:
+        import io
+
+        from PIL import Image
+
+        payloads = []
+        for im in imgs:
+            buf = io.BytesIO()
+            Image.fromarray(im).save(buf, format="JPEG", quality=95)
+            payloads.append(buf.getvalue())
+        out["encoder"] = "PIL"
+    out["encode_s"] = time.perf_counter() - t0
+    out["decoder"] = "cv2" if codec._HAS_CV2 else "PIL"
+    os.makedirs(root, exist_ok=True)
+    write_split(os.path.join(root, "train.idx"), os.path.join(root, "train.rec"),
+                payloads, list(np.repeat(np.arange(n // 8), 8)), num_classes=n // 8)
+    out["mean_jpeg_bytes"] = float(np.mean([len(p) for p in payloads]))
+    t0 = time.perf_counter()
+    for p in payloads[:2048]:
+        codec.decode(p)
+    out["one_thread_decode_images_per_s"] = min(2048, n) / (time.perf_counter() - t0)
+    del payloads, imgs
+    loader = BatchLoader(FaceRecordDataset(root), batch, shuffle=True, seed=100,
+                         drop_last=True, num_workers=workers)
+    try:
+        first, _, _ = next(loader.epoch())
+        if first.shape != (batch, size, size, 3):
+            raise AssertionError(f"JPEG rec batch {first.shape}")
+        t0 = time.perf_counter()
+        got = sum(len(u8) for u8, _, _ in loader.epoch())
+        out["loader_s"] = time.perf_counter() - t0
+    finally:
+        loader.close()
+    out["images_per_s"] = got / out["loader_s"]
+    out["decode_is_slower"] = out["images_per_s"] < EMBED_IMAGES_PER_S
+    return out
+
+
+def sampled_union_loss(key, feats: torch.Tensor, labels: torch.Tensor,
+                       weight: torch.Tensor, shards: int, num_sample: int,
+                       num_valid: int, s: float, m: float) -> torch.Tensor:
+    """The W-shard sampled Partial FC written as one softmax on one
+    device (13a's reference): the columns are every shard's sampled rows
+    (``partial_fc.shard_sample``), a padded row among them a constant 1.0
+    row masked out, a row's target the column of its class if its shard
+    sampled it (else the row leaves the mean)."""
+    c_local = weight.shape[0] // shards
+    labels = labels.long()
+    cols = torch.cat([d * c_local + partial_fc.shard_sample(key, labels, d, c_local,
+                                                            num_sample, num_valid)
+                      for d in range(shards)])
+    ok = cols < num_valid
+    w_sub = torch.where(ok[:, None], weight[cols], 1.0)
+    match = cols[None, :] == labels[:, None]
+    has = match.any(dim=1)
+    target = torch.where(has, match.float().argmax(dim=1), -1)
+    cosine = l2_normalize(feats.float(), dim=1) @ l2_normalize(w_sub, dim=1).T
+    logits = torch.where(ok[None, :], MARGINS["CosFace"](cosine, target, s, m),
+                         float("-inf"))
+    valid = (labels >= 0) & has
+    per_row = torch.logsumexp(logits, dim=1) - logits.gather(
+        1, target.clamp_min(0)[:, None])[:, 0]
+    return torch.where(valid, per_row, 0.0).sum() / valid.sum().clamp_min(1)
+
+
+def check_sharded_losses(devices: list, batch: int, embedding: int, classes: int,
+                         rate: float, s: float = 64.0, m: float = 0.4) -> dict:
+    """13a: the full-softmax and sampled Partial FC over ``devices``'
+    shards at batch x embedding x classes (a padded FC where the shard
+    count does not divide ``classes``) against one device: the full
+    softmax against the one-shard function, the sampled loss against
+    ``sampled_union_loss``; loss, feature and weight gradients within
+    PFC_REL_TOL (relative to the reference's largest entry), the padded
+    rows' gradient zero."""
+    home, w_count = devices[0], len(devices)
+    gen = torch.Generator(device=home).manual_seed(classes)
+    feats = torch.randn(batch, embedding, device=home, generator=gen)
+    labels = torch.randint(0, classes, (batch,), device=home, generator=gen,
+                           dtype=torch.int32)
+    labels[3] = -1
+    weight = torch.randn(classes, embedding, device=home, generator=gen)
+    padded, _ = partial_fc.pad_classes(weight, w_count)
+    c_local = padded.shape[0] // w_count
+    num_sample = partial_fc.num_sampled(rate, padded.shape[0], w_count)
+    key = prng_key(13)
+    out = {"classes": classes, "padded_rows": padded.shape[0], "shards": w_count,
+           "num_sample": num_sample}
+
+    def grads(fn, w, *parts):
+        f = feats.clone().requires_grad_(True)
+        wl = w.clone().requires_grad_(True)
+        loss = fn(f, wl, *parts)
+        loss.backward()
+        return loss.detach(), f.grad, wl.grad
+
+    def sharded(fn):
+        def run(f, w):
+            fs = [x.to(dev) for x, dev in zip(f.chunk(w_count), devices)]
+            ws = [x.to(dev) for x, dev in zip(w.chunk(w_count), devices)]
+            ls = [x.to(dev) for x, dev in zip(labels.chunk(w_count), devices)]
+            return fn(fs, ls, ws)
+        return run
+
+    forms = {
+        "full": (sharded(lambda fs, ls, ws: partial_fc.sharded_partial_fc_loss(
+                     fs, ls, ws, "CosFace", s, m, num_valid=classes)),
+                 lambda f, w: partial_fc.partial_fc_loss(f, labels, w[:classes],
+                                                         "CosFace", s, m)),
+        "sampled": (sharded(lambda fs, ls, ws: partial_fc.sharded_sampled_partial_fc_loss(
+                        key, fs, ls, ws, num_sample, "CosFace", s, m, num_valid=classes)),
+                    lambda f, w: sampled_union_loss(key, f, labels, w, w_count,
+                                                    num_sample, classes, s, m))}
+    for name, (fn, ref_fn) in forms.items():
+        got, ref = grads(fn, padded), grads(ref_fn, padded)
+        errs = {"loss": rel_err(got[0], ref[0]), "feature_grad": rel_err(got[1], ref[1]),
+                "weight_grad": rel_err(got[2][:classes], ref[2][:classes])}
+        pad_grad = float(got[2][classes:].abs().max()) if padded.shape[0] > classes else 0.0
+        out[name] = {"loss": float(got[0]), "rel_err": errs, "pad_rows_grad": pad_grad}
+        if not (max(errs.values()) <= PFC_REL_TOL and pad_grad == 0.0
+                and all(torch.isfinite(t).all() for t in got)):
+            raise AssertionError(f"13a {name} at {classes} classes over {w_count} shards: "
+                                 f"relative errors {errs}, padded rows' gradient {pad_grad}")
+    log("pretrain_mesh", part="13a", **{k: json.dumps(v) for k, v in out.items()})
+    return out
+
+
+def phase_pretrain_mesh(root: str, devices: list, argv: list,
+                        short_spec: str = SHORT_PRETRAIN_SPEC,
+                        jpeg_images: int = JPEG_IMAGES, iters: int = 5) -> dict:
+    """Phase 13: pretraining on every device of ``devices`` (the ``model``
+    axis; ``[d, d]`` is two shards of one device) at ``argv``'s widths
+    (``pretrain_argv``).  First item 9's JPEG measurement; 13a the sharded
+    losses against one device at ``argv``'s batch and width, 6,000 and
+    6,001 classes; 13b the CLI over the mesh, launch counts set to 0 before
+    its runs and read after: 1 epoch of the full softmax on ``argv``'s data
+    and 1 epoch at ``--sample_rate 0.1`` on ``short_spec`` (the log line,
+    the artefacts, the replicas bit for bit, one ``synth_gen`` launch a
+    batch), then the full softmax on ``short_spec`` over the mesh against
+    one device in bf16 and with the trunk in fp32 (the losses of every step
+    within MESH_TOL_FACTOR x the one-device run's own bf16-vs-fp32
+    distance); 13c step ms and samples/s of both losses over the mesh and
+    on one device, each card's peak memory and busy share.  Returns the
+    launches of 13b."""
+    home = devices[0]
+    on_card = home.type == "cuda"
+    mesh_arg = None if devices == mesh_mod.visible_devices(home.type) else devices
+    log("pretrain_mesh", mesh_devices=[str(d) for d in devices],
+        cards=len(dict.fromkeys(devices)))
+    args = pretrain_cli.build_parser().parse_args(argv)
+    item9 = jpeg_decode_rate(os.path.join(root, "jpeg_rec"), jpeg_images,
+                             size=args.image_size, batch=args.batch_size)
+    log("pretrain_mesh", part="item9", **{k: json.dumps(v) for k, v in item9.items()})
+    figures = {"item9": item9, "13a": [
+        check_sharded_losses(devices, args.batch_size, args.embedding_size, classes, 0.1,
+                             args.scale, args.margin)
+        for classes in (6000, 6001)]}
+
+    out = argv[argv.index("--output_dir") + 1]
+    runs = {"full": (mesh_arg, argv + ["--num_epoch", "1", "--sample_rate", "1.0"]),
+            "sampled": (mesh_arg, with_flag(with_flag(with_flag(
+                argv, "--output_dir", out + "_sampled"), "--data_dir", short_spec),
+                "--log_every", "2") + ["--num_epoch", "1", "--sample_rate", "0.1"])}
+    short = with_flag(with_flag(argv, "--data_dir", short_spec), "--log_every", "1")
+    short += ["--num_epoch", "1"]
+    for name, devs, extra in (("short_mesh", mesh_arg, []), ("short_one", [home], []),
+                              ("short_one_fp32", [home], ["--fp32"])):
+        runs[name] = (devs, with_flag(short, "--output_dir", f"{out}_{name}") + extra)
+    zero_launches()
+    recs, steps = {}, 0
+    for name, (devs, run_argv) in runs.items():
+        t0 = time.perf_counter()
+        rec = pretrain_cli.main(pretrain_cli.build_parser().parse_args(run_argv), devs)
+        mesh_mod.synchronize(devices)
+        rec["seconds"] = time.perf_counter() - t0
+        state = rec.pop("state")
+        rec["replicas_bitwise_equal"] = state.backbone.replicas_equal()
+        del state
+        recs[name] = rec
+        steps += len(rec["epochs"]) * rec["steps_per_epoch"]
+        log("pretrain_mesh", part="13b", run=name, seconds=f"{rec['seconds']:.2f}",
+            setup_s=f"{rec['setup_s']:.2f}", shards=rec["num_shards"], steps_per_epoch=rec["steps_per_epoch"],
+            epoch_s=rec["epoch_s"], save_s=rec["save_s"], num_sample=rec["num_sample"],
+            replicas_bitwise_equal=rec["replicas_bitwise_equal"],
+            losses=rec["losses"][-3:])
+        losses = [v for _, v in rec["losses"]]
+        want_shards = 1 if name.startswith("short_one") else len(devices)
+        if (not losses or not all(math.isfinite(v) for v in losses)
+                or rec["num_shards"] != want_shards or not rec["replicas_bitwise_equal"]):
+            raise AssertionError(f"13b {name}: shards {rec['num_shards']}, losses "
+                                 f"{rec['losses']}, replicas equal "
+                                 f"{rec['replicas_bitwise_equal']}")
+    launches = read_launches()
+    expect = {"max_sim": 0, "roc_hist": 0, "synth_gen": steps}
+    log("pretrain_mesh", part="13b", launches=launches, expected=expect)
+    if on_card and launches != expect:
+        raise AssertionError(f"13b launches {launches}, expected {expect}")
+    for name, d in (("full", out), ("sampled", out + "_sampled")):
+        with open(os.path.join(d, "pretrain.log")) as f:
+            text = f.read()
+        line = f"partial-FC over {len(devices)} model shards"
+        if line not in text:
+            raise AssertionError(f"13b {name}: pretrain.log lacks '{line}'")
+        fc = torch.load(os.path.join(d, "fc.pth"))
+        state = torch.load(os.path.join(d, pretrain_cli.STATE_FILE), map_location="cpu")
+        pad_rows = -(-recs[name]["num_classes"] // len(devices)) * len(devices)
+        if (tuple(fc.shape) != (recs[name]["num_classes"], args.embedding_size)
+                or not torch.isfinite(fc).all() or state["weight"].shape[0] != pad_rows):
+            raise AssertionError(f"13b {name}: fc {tuple(fc.shape)}, state rows "
+                                 f"{state['weight'].shape[0]} (want {pad_rows})")
+    pad_rows = -(-recs["sampled"]["num_classes"] // len(devices)) * len(devices)
+    if recs["sampled"]["num_sample"] != partial_fc.num_sampled(0.1, pad_rows, len(devices)):
+        raise AssertionError(f"13b sampled: {recs['sampled']['num_sample']} rows a shard")
+
+    # the mesh against one device over the same first steps
+    def distance(a: str, b: str) -> float:
+        la, lb = recs[a]["losses"], recs[b]["losses"]
+        if [s for s, _ in la] != [s for s, _ in lb]:
+            raise AssertionError(f"13b: logged steps {la} against {lb}")
+        return max(abs(x - y) for (_, x), (_, y) in zip(la, lb))
+
+    got, own = distance("short_mesh", "short_one"), distance("short_one", "short_one_fp32")
+    # the toy net has no bf16 trunk: MESH_FP32_TOL of the losses' scale
+    # (~10-100 at scale 64)
+    scale = max(abs(v) for _, v in recs["short_one"]["losses"])
+    tol = MESH_TOL_FACTOR * own if args.network != "toy" else MESH_FP32_TOL * max(scale, 1.0)
+    figures["13b"] = {"max_abs_diff": got, "bf16_vs_fp32": own, "tol": tol,
+                      "runs": {k: {f: v[f] for f in ("seconds", "epoch_s", "save_s",
+                                                      "setup_s", "num_shards",
+                                                      "num_sample")}
+                               for k, v in recs.items()}}
+    log("pretrain_mesh", part="13b", steps=len(recs["short_one"]["losses"]),
+        max_abs_diff=got, bf16_vs_fp32=own, tol=tol)
+    if not got <= tol:
+        raise AssertionError(f"13b: the mesh's losses differ from one device's by {got} > {tol}")
+
+    # 13c: both losses' steps over the mesh and on one device; busy shares
+    dataset = pretrain_cli.public_dataset(args, home)
+    u8, batch_labels = dataset.device_batch(np.arange(args.batch_size))
+    batch_labels = torch.from_numpy(batch_labels).to(home)
+    figures["13c"] = {"steps": {}, "busy": {}}
+    for name, devs in (("one", [home]), ("mesh", devices)):
+        figures["13c"]["steps"][name] = time_pretrain_steps(args, dataset, u8, batch_labels,
+                                                            iters, devs)
+        state = pretrain_cli.training_state(args, dataset.num_classes, devs)
+        step = pretrain_cli.make_train_step(args, state.num_valid, None)
+        key = pretrain_cli.step_key(prng_key(args.seed + 7), 0, 0)
+        for _ in range(2):
+            step(state, u8, batch_labels, args.lr, key)
+
+        def window():
+            for _ in range(4):
+                step(state, u8, batch_labels, args.lr, key)
+        figures["13c"]["busy"][name] = card_busy(window, devices)
+        del state
+        log("pretrain_mesh", part="13c", run=name,
+            steps=json.dumps(figures["13c"]["steps"][name]),
+            busy=json.dumps(figures["13c"]["busy"][name]))
+    if on_card:
+        torch.cuda.empty_cache()
+    log("pretrain_mesh", figures=json.dumps(figures, default=str))
+    return launches
+
+
 def main(argv: list) -> None:
     seconds = {}
 
@@ -2906,8 +3260,8 @@ def main(argv: list) -> None:
         seconds[name] = round(time.perf_counter() - t0, 2)
         return out
 
-    if argv not in ([], ["--phase", "12"], ["--phase", "12g"]):
-        raise SystemExit("usage: python3 chip_smoke.py [--phase 12 | --phase 12g]")
+    if argv not in ([], ["--phase", "12"], ["--phase", "12g"], ["--phase", "13"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--phase 12 | --phase 12g | --phase 13]")
     smi = timed("1_device", phase_device)
     timed("2_build", phase_build)
     if argv == ["--phase", "12g"]:
@@ -2919,10 +3273,14 @@ def main(argv: list) -> None:
             "count": torch.cuda.device_count()}}), flush=True)
         return
     if argv:
-        # phase 12 alone, on every GPU of the machine
+        # phase 12 or 13 alone, on every GPU of the machine
         with tempfile.TemporaryDirectory(prefix="fedfr_smoke_") as root:
-            timed("12_mesh", phase_mesh, os.path.join(root, "mesh"), mesh_devices(),
-                  ids=100, local_epochs=1)
+            if argv[1] == "12":
+                timed("12_mesh", phase_mesh, os.path.join(root, "mesh"), mesh_devices(),
+                      ids=100, local_epochs=1)
+            else:
+                timed("13_pretrain_mesh", phase_pretrain_mesh, root, mesh_devices(),
+                      pretrain_argv(PRETRAIN_SPEC, os.path.join(root, "pretrain_mesh")))
         log("smoke", phase_seconds=json.dumps(seconds),
             total_s=round(sum(seconds.values()), 2))
         print(smi, flush=True)
@@ -2973,6 +3331,10 @@ def main(argv: list) -> None:
         parts = timed("12_mesh", phase_mesh, os.path.join(root, "mesh"), mesh_devices(),
                       ids=100, local_epochs=1)
         by_phase["mesh"] = {k: sum(p[k] for p in parts.values()) for k in KERNEL_COUNTERS}
+        # pretraining over two shards of the card
+        by_phase["pretrain_mesh"] = timed(
+            "13_pretrain_mesh", phase_pretrain_mesh, root, mesh_devices(),
+            pretrain_argv(PRETRAIN_SPEC, os.path.join(root, "pretrain_mesh")))
     log("smoke", phase_seconds=json.dumps(seconds),
         total_s=round(sum(seconds.values()), 2))
     for record in (mining, roc, synth):

@@ -8,7 +8,8 @@ axes ``(client, data, model)``:
 * ``data``   — data parallelism: replicated weights, batches and ROC rows
   split over the devices (``federated/embed.py``,
   ``ops/roc_histogram.py::pairwise_roc_histogram_sharded``);
-* ``model``  — class sharding of the Partial FC (``model_mesh``).
+* ``model``  — class sharding of the Partial FC (``model_mesh``;
+  ``parallel/partial_fc.py``, the pretraining's batch and class shards).
 
 The port has one controller, as the JAX package has: one process drives
 every device of a mesh, and tensors move between devices with
@@ -202,6 +203,24 @@ def shard_over(mesh: Mesh, tensor: torch.Tensor, axis: str = "data") -> List[tor
     step = -(-tensor.shape[0] // len(devs))
     return [tensor[d * step:(d + 1) * step].to(dev, non_blocking=True)
             for d, dev in enumerate(devs)]
+
+
+def gathered(parts: Sequence[torch.Tensor], device: DeviceLike) -> torch.Tensor:
+    """The all-gather of one shard: ``parts`` (one a shard) concatenated in
+    shard order on ``device``.  Autograd's backward of it sums each part's
+    gradient over the shards that gathered it (the transpose of JAX's
+    ``all_gather``, a reduce-scatter)."""
+    return torch.cat([p.to(device, non_blocking=True) for p in parts])
+
+
+def reduced(parts: Sequence[torch.Tensor], device: DeviceLike) -> torch.Tensor:
+    """The sum of ``parts`` (one a shard) on ``device``, added in shard
+    order: ``((p0 + p1) + p2) + ...``, so that every run sums alike; one
+    part is returned as it is."""
+    out = parts[0].to(device, non_blocking=True)
+    for p in parts[1:]:
+        out = out + p.to(device, non_blocking=True)
+    return out
 
 
 def synchronize(devices: Sequence[DeviceLike]) -> None:

@@ -1,26 +1,35 @@
-"""Margin-softmax FC over every class ("Partial FC") on one device.
+"""Margin-softmax FC over every class ("Partial FC"), class-sharded over
+the mesh's ``model`` axis.
 
-The counterpart of ``fedfr_tpu/parallel/partial_fc.py`` with one class
-shard: plain functions on tensors, whose feature and weight gradients come
-from autograd.  The JAX package runs the same blocked log-sum-exp inside
-``shard_map`` over the mesh's ``model`` axis (every device a batch shard and
-a class shard, the reference's NCCL layout); with one shard its collectives
-are identities and the function is the one below.  Sharding over more than
-one GPU (``torch.distributed``) is not ported: ROADMAP B.2 item 4.
+The counterpart of ``fedfr_tpu/parallel/partial_fc.py``: plain functions on
+tensors, whose feature and weight gradients come from autograd.  Shard d of
+W holds the weight rows of classes ``[d * C_local, (d + 1) * C_local)``
+(``pad_classes`` pads the class count to a multiple of W) on its device, and
+a batch shard of the features and labels.  One controller runs the JAX
+package's ``shard_map`` body shard by shard: each shard gathers every
+feature and label in shard order (``mesh.gathered``), takes the logits of
+its own classes, and the log-sum-exp's max, sum and target logit are
+reduced on the first shard's device in shard order (``mesh.reduced``).  The
+loss is one scalar there; the backward of the gather sums each feature
+shard's gradient over the shards (JAX's reduce-scatter), and each weight
+shard's gradient stays on its device.  With one shard the reductions are
+identities.
 
-* ``partial_fc_loss``: the full softmax over the ``(C, E)`` weight; fp32
-  cosine (the JAX package passes ``Precision.HIGHEST``: TF32 must stay off,
-  PyTorch's default), the margin of ``ops/margins.py``, columns at or past
-  ``num_valid`` masked to ``-inf``, a stable log-sum-exp, rows labelled
-  ``-1`` left out of the mean.
-* ``sample_negatives`` / ``sampled_partial_fc_loss``: ``num_sample`` class
-  rows per step, positives forced and the rest uniform by the reference's
-  top-k of perturbed scores (partial_fc.py:94-104), from the JAX package's
-  key (``ops/threefry.py``).  Ties among the forced positives (score 2.0)
-  go to the lower index first, as ``lax.top_k`` breaks them: a stable
-  descending sort, not ``torch.topk``, whose order among ties is not
-  specified.  A positive that loses the budget (more distinct positives
-  than ``num_sample``) is masked out of the loss, not mis-targeted.
+* ``sharded_partial_fc_loss`` (``partial_fc_loss``: one shard): the full
+  softmax; fp32 cosine (the JAX package passes ``Precision.HIGHEST``: TF32
+  must stay off, PyTorch's default), the margin of ``ops/margins.py``,
+  columns at or past ``num_valid`` masked to ``-inf``, a stable
+  log-sum-exp, rows labelled ``-1`` left out of the mean.
+* ``sample_negatives`` / ``sharded_sampled_partial_fc_loss``
+  (``sampled_partial_fc_loss``: one shard): ``num_sample`` class rows per
+  shard and step, positives forced and the rest uniform by the reference's
+  top-k of perturbed scores (partial_fc.py:94-104), shard d from
+  ``fold_in(key, d)`` of the JAX package's key (``ops/threefry.py``).  Ties
+  among the forced positives (score 2.0) go to the lower index first, as
+  ``lax.top_k`` breaks them: a stable descending sort, not ``torch.topk``,
+  whose order among ties is not specified.  A positive that loses its
+  shard's budget (more distinct positives than ``num_sample``) is masked
+  out of the loss, not mis-targeted.
 
 Deviation from the reference kept from the JAX package: rows labelled -1 are
 excluded from the mean (the reference adds a spurious -log(1e-30) for them,
@@ -29,13 +38,14 @@ partial_fc.py:159-162).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from ..models.heads import l2_normalize
 from ..ops import threefry
 from ..ops.margins import MARGINS
+from .mesh import gathered, reduced
 
 
 def pad_classes(weight: torch.Tensor, num_shards: int) -> Tuple[torch.Tensor, int]:
@@ -48,17 +58,55 @@ def pad_classes(weight: torch.Tensor, num_shards: int) -> Tuple[torch.Tensor, in
     return weight, c
 
 
-def _softmax_ce(logits: torch.Tensor, local_label: torch.Tensor,
+def _sharded_ce(logits: Sequence[torch.Tensor], local_labels: Sequence[torch.Tensor],
                 valid: torch.Tensor) -> torch.Tensor:
     """Mean over ``valid`` rows of ``logsumexp(logits) - logits[label]``
-    (label -1: no target logit), the stabilising max detached."""
-    row_max = logits.max(dim=1).values.detach()
-    logz = torch.log(torch.exp(logits - row_max[:, None]).sum(dim=1)) + row_max
-    safe = local_label.clamp(0, logits.shape[1] - 1)
-    tgt = torch.where(local_label >= 0,
-                      logits.gather(1, safe[:, None])[:, 0], 0.0)
-    per_row = torch.where(valid, logz - tgt, 0.0)
+    over the shards' columns (label -1: no target logit on that shard), on
+    ``valid``'s device.  The stabilising max is the max of the shards'
+    maxima, detached."""
+    home = valid.device
+    row_max = [lg.max(dim=1).values.detach() for lg in logits]
+    gmax = row_max[0].to(home)
+    for mx in row_max[1:]:
+        gmax = torch.maximum(gmax, mx.to(home))
+    z = [torch.exp(lg - gmax.to(lg.device)[:, None]).sum(dim=1) for lg in logits]
+    logz = torch.log(reduced(z, home)) + gmax
+    tgt = [torch.where(ll >= 0, lg.gather(1, ll.clamp(0, lg.shape[1] - 1)[:, None])[:, 0], 0.0)
+           for lg, ll in zip(logits, local_labels)]
+    per_row = torch.where(valid, logz - reduced(tgt, home), 0.0)
     return per_row.sum() / valid.sum().clamp_min(1)
+
+
+def _shard_inputs(features, labels, weight: torch.Tensor):
+    """A shard's gathered (B, E) fp32 features and (B,) int64 labels, on its
+    weight's device."""
+    dev = weight.device
+    return gathered(features, dev).float(), gathered(labels, dev).long()
+
+
+def sharded_partial_fc_loss(features: Sequence[torch.Tensor],
+                            labels: Sequence[torch.Tensor],
+                            weights: Sequence[torch.Tensor], margin: str = "CosFace",
+                            s: float = 30.0, m: float = 0.4,
+                            num_valid: Optional[int] = None) -> torch.Tensor:
+    """The full-softmax margin CE over W shards: ``features[d]`` (B_d, E)
+    and ``labels[d]`` (B_d,) in [0, C) or -1, the batch shards in order;
+    ``weights[d]`` (C_local, E) the class shards, each on its device.
+    Returns the scalar on ``weights[0]``'s device."""
+    c_local = weights[0].shape[0]
+    nv = c_local * len(weights) if num_valid is None else num_valid
+    logits, local_labels = [], []
+    for d, w in enumerate(weights):
+        feats, all_labels = _shard_inputs(features, labels, w)
+        rel = all_labels - d * c_local
+        local_label = torch.where((rel >= 0) & (rel < c_local), rel, -1)
+        cosine = l2_normalize(feats, dim=1) @ l2_normalize(w, dim=1).T
+        lg = MARGINS[margin](cosine, local_label, s, m)
+        col = d * c_local + torch.arange(c_local, device=w.device)[None, :]
+        logits.append(torch.where(col < nv, lg, float("-inf")))
+        local_labels.append(local_label)
+    all_labels = gathered(labels, weights[0].device)
+    return _sharded_ce(logits, local_labels, all_labels >= 0)
 
 
 def partial_fc_loss(features: torch.Tensor, labels: torch.Tensor,
@@ -66,23 +114,18 @@ def partial_fc_loss(features: torch.Tensor, labels: torch.Tensor,
                     s: float = 30.0, m: float = 0.4,
                     num_valid: Optional[int] = None) -> torch.Tensor:
     """The full-softmax margin CE of ``features`` (B, E) with ``labels``
-    (B,) in [0, C) or -1 against every row of ``weight`` (C, E)."""
-    c = weight.shape[0]
-    nv = c if num_valid is None else num_valid
-    labels = labels.long()
-    cosine = l2_normalize(features.float(), dim=1) @ l2_normalize(weight, dim=1).T
-    local_label = torch.where((labels >= 0) & (labels < c), labels, -1)
-    logits = MARGINS[margin](cosine, local_label, s, m)
-    col = torch.arange(c, device=logits.device)[None, :]
-    logits = torch.where(col < nv, logits, float("-inf"))
-    return _softmax_ce(logits, local_label, labels >= 0)
+    (B,) in [0, C) or -1 against every row of ``weight`` (C, E): the
+    one-shard ``sharded_partial_fc_loss``."""
+    return sharded_partial_fc_loss([features], [labels], [weight], margin, s, m,
+                                   num_valid)
 
 
 def sample_negatives(key: threefry.Key, labels: torch.Tensor, num_local: int,
                      num_sample: int, class_start: int = 0,
                      valid_count: Optional[int] = None) -> torch.Tensor:
-    """The sorted indices of ``num_sample`` class rows: the batch's
-    positives forced (score 2.0), the rest by ``jax.random.uniform(key,
+    """The sorted indices of ``num_sample`` of a shard's ``num_local``
+    class rows (its first class ``class_start``): the batch's positives
+    forced (score 2.0), the rest by ``jax.random.uniform(key,
     (num_local,))``; rows at or past ``valid_count`` (padding) score -1, so
     real classes always win the budget."""
     dev = labels.device
@@ -100,39 +143,74 @@ def sample_negatives(key: threefry.Key, labels: torch.Tensor, num_local: int,
     return order[:num_sample].sort().values
 
 
+def shard_sample(key: threefry.Key, labels: torch.Tensor, shard: int,
+                 num_local: int, num_sample: int,
+                 num_valid: Optional[int] = None) -> torch.Tensor:
+    """Shard ``shard``'s sampled row indices for the whole batch's
+    ``labels`` (``partial_fc.py:176-180``): ``sample_negatives`` from
+    ``fold_in(key, shard)`` over its ``num_local`` rows, those at or past
+    ``num_valid`` being padding."""
+    start = shard * num_local
+    valid = None if num_valid is None else min(max(num_valid - start, 0), num_local)
+    return sample_negatives(threefry.fold_in(key, shard), labels, num_local,
+                            num_sample, start, valid_count=valid)
+
+
+def sharded_sampled_partial_fc_loss(key: threefry.Key, features: Sequence[torch.Tensor],
+                                    labels: Sequence[torch.Tensor],
+                                    weights: Sequence[torch.Tensor], num_sample: int,
+                                    margin: str = "CosFace", s: float = 30.0,
+                                    m: float = 0.4,
+                                    num_valid: Optional[int] = None) -> torch.Tensor:
+    """The Partial FC with negative-class sampling over W shards (the
+    layout of ``sharded_partial_fc_loss``): each shard's margin CE columns
+    are its ``num_sample`` sampled rows, which alone get a gradient.
+    ``key`` is the step's sampling key.  A row counts only where some shard
+    holds its target among its sampled rows."""
+    c_local = weights[0].shape[0]
+    logits, local_labels = [], []
+    for d, w in enumerate(weights):
+        feats, all_labels = _shard_inputs(features, labels, w)
+        start = d * c_local
+        rel = all_labels - start
+        index = shard_sample(key, all_labels, d, c_local, num_sample, num_valid)
+        w_sub = w[index]
+        # remap labels into the sampled set; a positive that lost the budget
+        # maps nowhere and its row leaves the loss
+        pos = (rel >= 0) & (rel < c_local)
+        safe_rel = torch.where(pos, rel, 0)
+        remapped = torch.searchsorted(index, safe_rel).clamp(0, num_sample - 1)
+        hit = index[remapped] == safe_rel
+        local_label = torch.where(pos & hit, remapped, -1)
+        col_ok = None
+        if num_valid is not None:
+            # a padded all-zero row that sampling had to fall back to becomes
+            # a constant BEFORE the normalisation: the norm's gradient at 0 is
+            # NaN
+            col_ok = (start + index) < num_valid
+            w_sub = torch.where(col_ok[:, None], w_sub, 1.0)
+        cosine = l2_normalize(feats, dim=1) @ l2_normalize(w_sub, dim=1).T
+        lg = MARGINS[margin](cosine, local_label, s, m)
+        if col_ok is not None:
+            lg = torch.where(col_ok[None, :], lg, float("-inf"))
+        logits.append(lg)
+        local_labels.append(local_label)
+    home = weights[0].device
+    has_tgt = reduced([(ll >= 0).float() for ll in local_labels], home)
+    all_labels = gathered(labels, home)
+    return _sharded_ce(logits, local_labels, (all_labels >= 0) & (has_tgt > 0))
+
+
 def sampled_partial_fc_loss(key: threefry.Key, features: torch.Tensor,
                             labels: torch.Tensor, weight: torch.Tensor,
                             num_sample: int, margin: str = "CosFace",
                             s: float = 30.0, m: float = 0.4,
                             num_valid: Optional[int] = None) -> torch.Tensor:
-    """Partial FC with negative-class sampling (a static ``num_sample``):
-    the margin CE over the sampled rows of ``weight``, which alone get a
-    gradient.  ``key`` is the step's sampling key; the shard's key is
-    ``fold_in(key, 0)``, as the JAX package's shard 0 draws it."""
-    c = weight.shape[0]
-    labels = labels.long()
-    index = sample_negatives(threefry.fold_in(key, 0), labels, c, num_sample,
-                             valid_count=None if num_valid is None
-                             else min(max(num_valid, 0), c))
-    w_sub = weight[index]
-    # remap labels into the sampled set; a positive that lost the budget
-    # maps nowhere and its row leaves the loss
-    pos = (labels >= 0) & (labels < c)
-    safe_rel = torch.where(pos, labels, 0)
-    remapped = torch.searchsorted(index, safe_rel).clamp(0, num_sample - 1)
-    hit = index[remapped] == safe_rel
-    local_label = torch.where(pos & hit, remapped, -1)
-    col_ok = None
-    if num_valid is not None:
-        # a padded all-zero row that sampling had to fall back to becomes a
-        # constant BEFORE the normalisation: the norm's gradient at 0 is NaN
-        col_ok = index < num_valid
-        w_sub = torch.where(col_ok[:, None], w_sub, 1.0)
-    cosine = l2_normalize(features.float(), dim=1) @ l2_normalize(w_sub, dim=1).T
-    logits = MARGINS[margin](cosine, local_label, s, m)
-    if col_ok is not None:
-        logits = torch.where(col_ok[None, :], logits, float("-inf"))
-    return _softmax_ce(logits, local_label, (labels >= 0) & (local_label >= 0))
+    """The one-shard ``sharded_sampled_partial_fc_loss``: the margin CE over
+    ``num_sample`` sampled rows of ``weight``, drawn from ``fold_in(key,
+    0)`` as the JAX package's shard 0 draws them."""
+    return sharded_sampled_partial_fc_loss(key, [features], [labels], [weight],
+                                           num_sample, margin, s, m, num_valid)
 
 
 def num_sampled(sample_rate: float, num_classes_padded: int,

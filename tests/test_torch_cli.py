@@ -293,7 +293,7 @@ def test_chip_smoke_mesh_phase_rehearsed_on_cpu(tmp_path):
     """The smoke's phase 12 at toy size on two shards of the CPU: the
     sharded ROC bit for bit (12a), the data-axis embed of a tiny synth:
     public set (12b), the busy-share windows (12g, not measured on the
-    CPU), run.sh's round over the mesh with 5 clients for 2
+    CPU), run.sh's round over the mesh with 3 clients for 2
     rounds against the one-device round at --lockstep 2 in bf16 and fp32
     (12c, 12e), the cached and plain rounds over the mesh (12d), with its
     log-line, export and local_log.txt checks; no launch is counted here."""
@@ -308,6 +308,28 @@ def test_chip_smoke_mesh_phase_rehearsed_on_cpu(tmp_path):
         image_size=IMG, batch=8, local_epochs=1, eval_batch=16)
     assert list(by_part) == ["12c", "12d_cached", "12d_plain"]
     assert all(v == NO_LAUNCHES for v in by_part.values())
+
+
+def test_chip_smoke_pretrain_mesh_phase_rehearsed_on_cpu(tmp_path):
+    """The smoke's phase 13 at toy size on two shards of the CPU: item 9's
+    JPEG rec read by the port's loader, the sharded losses against one
+    device at 6,000 and 6,001 classes (13a), the pretraining CLI over the
+    mesh (a full epoch, a sampled one, the replicas and artefact checks)
+    and against one device in bf16 and fp32 (13b), the step figures (13c);
+    no launch is counted here."""
+    devices = chip_smoke.mesh_devices("cpu")
+    spec = ("synth:image_size=16,imgs_min=2,imgs_max=2,public_ids=21,public_imgs=48,"
+            "veri_ids=4,veri_imgs=2")
+    argv = chip_smoke.pretrain_argv(spec, str(tmp_path / "pre"), device="cpu",
+                                    network="toy", embedding=16, image_size=IMG,
+                                    batch=8)
+    argv = chip_smoke.with_flag(argv, "--log_every", "2") + ["--num_workers", "2"]
+    launches = chip_smoke.phase_pretrain_mesh(
+        str(tmp_path), devices, argv, short_spec=spec.replace("public_imgs=48", "public_imgs=24"),
+        jpeg_images=64, iters=2)
+    assert launches == NO_LAUNCHES
+    assert os.path.exists(tmp_path / "pre_sampled" / "fc.pth")
+    assert torch.load(tmp_path / "pre" / "fc.pth").shape == (21, 16)
 
 
 def test_chip_smoke_reference_phase_rehearsed_on_cpu(smoke_root, tmp_path, monkeypatch):

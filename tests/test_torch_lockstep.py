@@ -58,6 +58,14 @@ def _no_tf32():
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
 
+@pytest.fixture(autouse=True)
+def _port_log_reaches_caplog(monkeypatch):
+    """An in-process CLI run earlier in the same worker (``init_logging``)
+    leaves the port's root logger with ``propagate=False``, and caplog's
+    handler sits on the root logger: let the server's records through."""
+    monkeypatch.setattr(logging.getLogger("fedfr_tpu_torch"), "propagate", True)
+
+
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
     """3 clients x 3 IDs x 8 images and a 6-ID x 5-image public split,

@@ -77,6 +77,14 @@ def _no_tf32():
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
 
+@pytest.fixture(autouse=True)
+def _port_log_reaches_caplog(monkeypatch):
+    """An in-process CLI run earlier in the same worker (``init_logging``)
+    leaves the port's root logger with ``propagate=False``, and caplog's
+    handler sits on the root logger: let the server's records through."""
+    monkeypatch.setattr(logging.getLogger("fedfr_tpu_torch"), "propagate", True)
+
+
 # ------------------------------------------------------------------ meshes
 
 @pytest.mark.parametrize("shape", [None, (8, 1, 1), (1, 8, 1), (2, 2, 2), (1, 1, 8)])

@@ -74,8 +74,11 @@ def _imports(tree):
 # paths the card never takes: the rec codec's guarded JPEG decoder (raw
 # payloads need none; PIL is its fallback), the .bin loader's resize of
 # images that are not 112x112 already, and PCA before the k-fold threshold
-# sweep (pca > 0; the reference's default is 0)
+# sweep (pca > 0; the reference's default is 0); and the smoke's JPEG
+# encoder for ROADMAP item 9's measurement, imported only where the machine
+# has cv2 (else PIL, else no JPEG rec)
 OPTIONAL_IMPORTS = {
+    "chip_smoke.py": [("cv2", "jpeg_decode_rate")],
     "fedfr_tpu_torch/data/codec.py": [("cv2", None)],
     "fedfr_tpu_torch/evalsuite/verification.py": [("cv2", "_resize_short")],
     "fedfr_tpu_torch/ops/kfold.py": [("sklearn", "calculate_roc")],
