@@ -4,13 +4,15 @@
     python3 chip_smoke.py --phase 12   # phases 1, 2 and 12, on every card
     python3 chip_smoke.py --phase 12g  # phases 1, 2 and 12g alone
     python3 chip_smoke.py --phase 13   # phases 1, 2 and 13, on every card
+    python3 chip_smoke.py --phase 14   # phases 1, 2 and 14 alone
 
 Phases, in order (any failure raises and the script exits non-zero):
 
 1. device  — requires CUDA; prints the card's name and power limit
    (nvidia-smi); switches TF32 off for the comparisons.
 2. build   — builds every CUDA kernel of the port from csrc/ (one nvcc per
-   source, started together) and prints the build seconds and ptxas lines
+   source, started together) and, beside them, the native reader
+   (native/recio.cpp, g++), and prints the build seconds and ptxas lines
    (registers, spills); for the ROC kernel also its threads, dynamic shared
    memory and blocks per SM (the occupancy query).
 3. kernels — each kernel against its plain PyTorch version on the card, at
@@ -211,10 +213,6 @@ Phases, in order (any failure raises and the script exits non-zero):
 13. pretrain_mesh — pretraining on every GPU of the machine, or over two
    shards of ``cuda:0`` (phase 12's ``mesh_devices``), at phase 9's widths
    on ``synth:public_imgs=61440`` (6,000 IDs):
-   item 9  which of cv2, PIL, g++ and libjpeg the machine has; with cv2 or
-        PIL a rec of 8,192 JPEG images of 112x112 at quality 95, read by the
-        port's ``BatchLoader`` (6 decode threads): images/s beside the
-        public embed's ~23,000;
    13a  the sharded full-softmax and sampled (rate 0.1) Partial FC at 512
         x 512 x 6,000 and x 6,001 classes (a padded FC), fp32 with TF32
         off: loss, feature and weight gradients within 1e-5 (relative) of
@@ -233,10 +231,36 @@ Phases, in order (any failure raises and the script exits non-zero):
         and each card's busy share over 4 full-softmax steps (12g's
         ``card_busy``).
 
+14. native — the native reader (``fedfr_tpu_torch/native``: C++ threads,
+   its own JPEG decoder) and run.sh's round over a JPEG rec root:
+   14a  the reader's build seconds and command, the host's cores (count,
+        affinity), CPU model and cgroup CPU quota where readable, the
+        card's name and power limit;
+   14b  a rec of 32,768 JPEG images (112x112, quality 95, 4:2:0, cv2 or
+        else PIL; 4,096 IDs x 8), every image read natively against
+        ``codec.decode`` through the Python path's ``BatchLoader`` (6
+        threads), and 256 images of each variant (4:4:4, 4:2:2, restart
+        intervals, progressive, grayscale, 40x40): 0 differing bytes;
+   14c  images/s of the reader at 1, 2, 4, 8 threads and the affinity
+        count (batches of 512 over 8,192 images, host clock), of the Python
+        loader at 6 workers and of ``codec.decode`` on one thread, beside
+        the embed's ~23,000, and the split of one thread's time between
+        entropy decode and reconstruction;
+   14d  one round of run.sh's flags through the CLI's setup, run_round and
+        finish over the JPEG root (2 clients x 100 IDs x 8 images, 14b's
+        public set, 2,000 veri images, sphere64, E=512, batch 256),
+        launches set to 0 before and read after (mining, ROC), the native
+        counters (> 0: the public embed, the mined subset's training, the
+        local eval), the ``phase/public_embed`` span's images/s; then the
+        round's global model over the public set natively (the card's busy
+        share, ``card_busy``) and over its first 8,192 images on the Python
+        path (``use_native=False``): images/s of both and the largest
+        feature difference, which must be 0 (the bytes are the same).
+
 The line before the last is a JSON object with every hand-written kernel
-(its ``launches`` summed over phases 4-13, and by phase, 7a-7d apart, 11a-11c
-and 12c-12d together); the last line is the device record.  ``--phase 12``
-and ``--phase 13`` print no kernel line.  Widths are the reference's (sphere64 and iresnet100, E=512,
+(its ``launches`` summed over phases 4-14, and by phase, 7a-7d apart, 11a-11c
+and 12c-12d together); the last line is the device record.  ``--phase 12``,
+``--phase 13`` and ``--phase 14`` print no kernel line.  Widths are the reference's (sphere64 and iresnet100, E=512,
 112x112, batch 256); counts are cut:
   * (phases 4-7; phase 8 runs the reference's data, cut as listed there)
     2 clients x 100 IDs x 8 train images (reference: 40 clients x 100 IDs);
@@ -264,11 +288,15 @@ and ``--phase 13`` print no kernel line.  Widths are the reference's (sphere64 a
     images;
   * (phase 13) the public set cut as phase 9's for the full epoch and to
     6,144 images (all 6,000 IDs) for the sampled epoch and the comparison's
-    12 steps (reference: 16 epochs of 420,671 images).
+    12 steps (reference: 16 epochs of 420,671 images);
+  * (phase 14) a JPEG public set of 32,768 images (reference: 420,671),
+    the mined set capped at 6,500 images as in phase 8, 1 local epoch, 1
+    round.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import glob
 import json
@@ -285,6 +313,7 @@ import numpy as np
 import torch
 
 import fedfr_tpu_torch.federated.embed as embed_mod
+import fedfr_tpu_torch.native as native_mod
 import fedfr_tpu_torch.ops.max_sim as max_sim_mod
 import fedfr_tpu_torch.ops.roc_hist as roc_hist_mod
 import fedfr_tpu_torch.ops.roc_histogram as roc_histogram_mod
@@ -294,6 +323,7 @@ from fedfr_tpu_torch import local_all as local_all_cli
 from fedfr_tpu_torch import pretrain as pretrain_cli
 from fedfr_tpu_torch import train as train_cli
 from fedfr_tpu_torch.data import BatchLoader, FaceRecordDataset, codec, synthetic, write_split
+from fedfr_tpu_torch.data.datasets import native_threads
 from fedfr_tpu_torch.data.pipeline import DevicePrefetcher
 from fedfr_tpu_torch.evalsuite import ijbc
 from fedfr_tpu_torch.federated.state import normalize_images
@@ -301,6 +331,7 @@ from fedfr_tpu_torch.federated.trainer import (branch_objective_kwargs, branch_s
                                                init_client_state)
 from fedfr_tpu_torch.models import BCEModule, build_backbone
 from fedfr_tpu_torch.models.heads import l2_normalize
+from fedfr_tpu_torch.native import NativeReader
 from fedfr_tpu_torch.ops._build import build_kernels, build_seconds, ptxas_info
 from fedfr_tpu_torch.ops.margins import MARGINS
 from fedfr_tpu_torch.ops.roc_histogram import tpr_at_fpr_table
@@ -433,13 +464,18 @@ def cuda_ms(fn, iters: int, label: str, batch: int = 1) -> float:
 
 # ---------------------------------------------------------------- phase 1
 
+def card_lines() -> list:
+    """Each card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
                          "needs an NVIDIA GPU")
-    cards = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                            "--format=csv,noheader"], capture_output=True,
-                           text=True, check=True).stdout.strip().splitlines()
+    cards = card_lines()
     smi = cards[0]
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -454,9 +490,14 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    build_kernels(list(KERNEL_COUNTERS))
+    # the native reader's g++ runs beside the kernels' nvcc
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        reader = pool.submit(native_mod.build_library)
+        build_kernels(list(KERNEL_COUNTERS))
+        reader.result()
     log("build", seconds=f"{time.perf_counter() - t0:.2f}",
-        per_kernel={k: round(v, 2) for k, v in build_seconds.items()})
+        per_kernel={k: round(v, 2) for k, v in build_seconds.items()},
+        native_reader_s=native_mod.build_seconds)
     for name, info in ptxas_info.items():
         for line in info.splitlines():
             if "registers" in line or "spill" in line or "wgmma" in line:
@@ -908,23 +949,25 @@ def _noisy(rng: np.random.Generator, base: np.ndarray, per_id: int,
     return np.clip(imgs, 0, 255).astype(np.uint8)
 
 
-def _write(d: str, prefix: str, imgs, labels, num_classes, id_base=None) -> None:
+def _write(d: str, prefix: str, imgs, labels, num_classes, id_base=None,
+           encode=codec.encode_raw) -> None:
     os.makedirs(d, exist_ok=True)
     write_split(os.path.join(d, f"{prefix}.idx"), os.path.join(d, f"{prefix}.rec"),
-                [codec.encode_raw(im) for im in imgs], list(labels),
+                [encode(im) for im in imgs], list(labels),
                 num_classes=num_classes, id_base=id_base)
 
 
 def write_fl_split(root: str, n_clients: int, ids: int, imgs_per_id: int,
                    pub_ids: int, pub_imgs: int, size: int, seed: int,
-                   veri_imgs: int) -> None:
-    """split_train_i{N}c{K}/client_*/ + split_pretrain_6000/client_0000/ +
-    local_veri_{N}/ (the ``test`` prefix, ``veri_imgs`` images per identity
-    drawn from the train split's identity patterns, global labels: client c
-    owns c*ids .. c*ids+ids-1) + local_gallery_{N}/ (the ``test`` prefix:
-    every client's train images under their global labels, as
-    split_dataset/split_FL.py writes the gallery), written with the port's
-    own ``write_split``."""
+                   veri_imgs: int, encode=codec.encode_raw) -> None:
+    """split_train_i{N}c{K}/client_*/ + split_pretrain_6000/client_0000/
+    (none where ``pub_ids`` is 0) + local_veri_{N}/ (the ``test`` prefix,
+    ``veri_imgs`` images per identity drawn from the train split's identity
+    patterns, global labels: client c owns c*ids .. c*ids+ids-1) +
+    local_gallery_{N}/ (the ``test`` prefix: every client's train images
+    under their global labels, as split_dataset/split_FL.py writes the
+    gallery), written with the port's own ``write_split``, each image's
+    payload ``encode(image)`` (FRAW by default)."""
     rng = np.random.default_rng(seed)
     split = os.path.join(root, "split_train_i%04dc%04d" % (n_clients * ids, n_clients))
     bases, train = [], []
@@ -932,17 +975,18 @@ def write_fl_split(root: str, n_clients: int, ids: int, imgs_per_id: int,
         bases.append(_patterns(rng, ids, size))
         train.append(_noisy(rng, bases[-1], imgs_per_id))
         _write(os.path.join(split, "client_%04d" % c), "train", train[-1],
-               np.repeat(np.arange(ids), imgs_per_id), ids, c * ids)
-    _write(os.path.join(root, "split_pretrain_6000", "client_0000"), "train",
-           _noisy(rng, _patterns(rng, pub_ids, size), pub_imgs),
-           np.repeat(np.arange(pub_ids), pub_imgs), pub_ids)
+               np.repeat(np.arange(ids), imgs_per_id), ids, c * ids, encode)
+    if pub_ids:
+        _write(os.path.join(root, "split_pretrain_6000", "client_0000"), "train",
+               _noisy(rng, _patterns(rng, pub_ids, size), pub_imgs),
+               np.repeat(np.arange(pub_ids), pub_imgs), pub_ids, encode=encode)
     veri = np.concatenate([_noisy(rng, b, veri_imgs) for b in bases])
     _write(os.path.join(root, "local_veri_%d" % (n_clients * ids)), "test",
            veri, np.repeat(np.arange(n_clients * ids), veri_imgs),
-           n_clients * ids)
+           n_clients * ids, encode=encode)
     _write(os.path.join(root, "local_gallery_%d" % (n_clients * ids)), "test",
            np.concatenate(train), np.repeat(np.arange(n_clients * ids), imgs_per_id),
-           n_clients * ids)
+           n_clients * ids, encode=encode)
 
 
 def write_bin(path: str, n_pairs: int, size: int, seed: int) -> None:
@@ -2948,82 +2992,12 @@ def phase_mesh(root: str, devices: list, ids: int, pub_ids: int = 64,
 SHORT_PRETRAIN_SPEC = "synth:public_imgs=6144"
 # 13a: the sharded losses against the one-shard forms, in fp32 (TF32 off)
 PFC_REL_TOL = 1e-5
-JPEG_IMAGES = 8192
-# the public embed's images/s on one card (PERF.md section 5, phases 8 and
-# 12b), the rate a host decode would have to keep up with
-EMBED_IMAGES_PER_S = 23_000
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     """max |a - b| over max |b| (fp64)."""
     a, b = a.detach().double().cpu(), b.detach().double().cpu()
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-
-
-def jpeg_decode_rate(root: str, n: int = JPEG_IMAGES, size: int = 112,
-                     batch: int = 512, workers: int = 6) -> dict:
-    """ROADMAP item 9's measurement: which of cv2, PIL, g++ and libjpeg the
-    machine has; with cv2 or PIL, a rec of ``n`` JPEG images (quality 95,
-    the smoke's seeded patterns), the codec's decode alone on one thread,
-    and the port's ``BatchLoader`` over the rec (the CLI's 6 decode
-    threads): images/s on the host clock, beside the public embed's
-    rate."""
-    import ctypes.util
-    import importlib.util
-
-    have = {"cv2": importlib.util.find_spec("cv2") is not None,
-            "PIL": importlib.util.find_spec("PIL") is not None,
-            "gxx": shutil.which("g++") is not None,
-            "libjpeg": ctypes.util.find_library("jpeg")}
-    out = {"have": have, "images": n, "embed_images_per_s": EMBED_IMAGES_PER_S}
-    if not (have["cv2"] or have["PIL"]):
-        out["images_per_s"] = "not measured (neither cv2 nor PIL: no JPEG rec can be read here)"
-        return out
-    rng = np.random.default_rng(13)
-    imgs = _noisy(rng, _patterns(rng, n // 8, size), 8)
-    t0 = time.perf_counter()
-    if have["cv2"]:
-        import cv2
-
-        payloads = [cv2.imencode(".jpg", im[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, 95])[1]
-                    .tobytes() for im in imgs]
-        out["encoder"] = "cv2"
-    else:
-        import io
-
-        from PIL import Image
-
-        payloads = []
-        for im in imgs:
-            buf = io.BytesIO()
-            Image.fromarray(im).save(buf, format="JPEG", quality=95)
-            payloads.append(buf.getvalue())
-        out["encoder"] = "PIL"
-    out["encode_s"] = time.perf_counter() - t0
-    out["decoder"] = "cv2" if codec._HAS_CV2 else "PIL"
-    os.makedirs(root, exist_ok=True)
-    write_split(os.path.join(root, "train.idx"), os.path.join(root, "train.rec"),
-                payloads, list(np.repeat(np.arange(n // 8), 8)), num_classes=n // 8)
-    out["mean_jpeg_bytes"] = float(np.mean([len(p) for p in payloads]))
-    t0 = time.perf_counter()
-    for p in payloads[:2048]:
-        codec.decode(p)
-    out["one_thread_decode_images_per_s"] = min(2048, n) / (time.perf_counter() - t0)
-    del payloads, imgs
-    loader = BatchLoader(FaceRecordDataset(root), batch, shuffle=True, seed=100,
-                         drop_last=True, num_workers=workers)
-    try:
-        first, _, _ = next(loader.epoch())
-        if first.shape != (batch, size, size, 3):
-            raise AssertionError(f"JPEG rec batch {first.shape}")
-        t0 = time.perf_counter()
-        got = sum(len(u8) for u8, _, _ in loader.epoch())
-        out["loader_s"] = time.perf_counter() - t0
-    finally:
-        loader.close()
-    out["images_per_s"] = got / out["loader_s"]
-    out["decode_is_slower"] = out["images_per_s"] < EMBED_IMAGES_PER_S
-    return out
 
 
 def sampled_union_loss(key, feats: torch.Tensor, labels: torch.Tensor,
@@ -3116,10 +3090,10 @@ def check_sharded_losses(devices: list, batch: int, embedding: int, classes: int
 
 def phase_pretrain_mesh(root: str, devices: list, argv: list,
                         short_spec: str = SHORT_PRETRAIN_SPEC,
-                        jpeg_images: int = JPEG_IMAGES, iters: int = 5) -> dict:
+                        iters: int = 5) -> dict:
     """Phase 13: pretraining on every device of ``devices`` (the ``model``
     axis; ``[d, d]`` is two shards of one device) at ``argv``'s widths
-    (``pretrain_argv``).  First item 9's JPEG measurement; 13a the sharded
+    (``pretrain_argv``).  13a the sharded
     losses against one device at ``argv``'s batch and width, 6,000 and
     6,001 classes; 13b the CLI over the mesh, launch counts set to 0 before
     its runs and read after: 1 epoch of the full softmax on ``argv``'s data
@@ -3137,10 +3111,7 @@ def phase_pretrain_mesh(root: str, devices: list, argv: list,
     log("pretrain_mesh", mesh_devices=[str(d) for d in devices],
         cards=len(dict.fromkeys(devices)))
     args = pretrain_cli.build_parser().parse_args(argv)
-    item9 = jpeg_decode_rate(os.path.join(root, "jpeg_rec"), jpeg_images,
-                             size=args.image_size, batch=args.batch_size)
-    log("pretrain_mesh", part="item9", **{k: json.dumps(v) for k, v in item9.items()})
-    figures = {"item9": item9, "13a": [
+    figures = {"13a": [
         check_sharded_losses(devices, args.batch_size, args.embedding_size, classes, 0.1,
                              args.scale, args.margin)
         for classes in (6000, 6001)]}
@@ -3251,6 +3222,266 @@ def phase_pretrain_mesh(root: str, devices: list, argv: list,
     return launches
 
 
+# ---------------------------------------------------------------- phase 14
+
+# 14b's JPEG rec, the 14d round's public set: 4,096 IDs x 8 images of
+# 112x112 at quality 95; 14c's rates over its first NATIVE_RATE_IMAGES
+NATIVE_IMAGES = 32_768
+NATIVE_RATE_IMAGES = 8_192
+NATIVE_VARIANT_IMAGES = 256
+NATIVE_BATCH = 512
+JPEG_QUALITY = 95
+# the public embed's images/s on one card (PERF.md section 5, phases 8 and
+# 12b), the rate a host decode has to keep up with
+EMBED_IMAGES_PER_S = 23_000
+# 14b's variants: name -> (image size, jpeg_encoder options)
+JPEG_VARIANTS = {"444": (112, {"sampling": "444"}), "422": (112, {"sampling": "422"}),
+                 "restart": (112, {"restart": 4}),
+                 "progressive": (112, {"progressive": True}),
+                 "gray": (112, {"gray": True}), "40x40": (40, {})}
+SAMPLING_FACTORS = {"420": 0x221111, "422": 0x211111, "444": 0x111111}
+
+
+def jpeg_encoder(quality: int = JPEG_QUALITY, sampling: str = "420", restart: int = 0,
+                 progressive: bool = False, gray: bool = False):
+    """A function from an RGB u8 image to a JPEG payload, through cv2
+    (libjpeg-turbo) where the machine has it, else PIL: ``sampling`` 420,
+    422 or 444, ``restart`` an interval in MCUs, ``gray`` one component
+    (the image's first channel)."""
+    import importlib.util
+
+    if importlib.util.find_spec("cv2") is not None:
+        import cv2
+
+        params = [cv2.IMWRITE_JPEG_QUALITY, quality,
+                  cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING_FACTORS[sampling],
+                  cv2.IMWRITE_JPEG_RST_INTERVAL, restart,
+                  cv2.IMWRITE_JPEG_PROGRESSIVE, int(progressive)]
+
+        def encode(img: np.ndarray) -> bytes:
+            img = img[..., 0] if gray else img[..., ::-1]
+            ok, buf = cv2.imencode(".jpg", np.ascontiguousarray(img), params)
+            if not ok:
+                raise RuntimeError("cv2 failed to encode a JPEG")
+            return buf.tobytes()
+        encode.library = "cv2"
+        return encode
+    import io
+
+    from PIL import Image
+
+    options = {"quality": quality, "progressive": progressive,
+               "subsampling": {"444": 0, "422": 1, "420": 2}[sampling],
+               "restart_marker_blocks": restart}
+
+    def encode(img: np.ndarray) -> bytes:
+        buf = io.BytesIO()
+        Image.fromarray(img[..., 0] if gray else img).save(buf, format="JPEG", **options)
+        return buf.getvalue()
+    encode.library = "PIL"
+    return encode
+
+
+def jpeg_rec_payloads(n: int, size: int, encode, seed: int, chunk: int = 512) -> list:
+    """``n`` seeded images, 8 an ID (the smoke's patterns), as JPEG payloads
+    ``encode(image)``, made a chunk a thread (numpy and cv2 release the
+    GIL): one noise field of ``chunk`` images is drawn once and laid over
+    every chunk's own patterns, so that a rec of tens of thousands of images
+    is made in seconds."""
+    noise = np.random.default_rng(seed).standard_normal(
+        (min(chunk, n), size, size, 3), dtype=np.float32) * 24
+
+    def make(start: int) -> list:
+        m = min(chunk, n - start)
+        rng = np.random.default_rng([seed, start])
+        base = np.repeat(_patterns(rng, -(-m // 8), size), 8, axis=0)[:m]
+        return [encode(im) for im in np.clip(base + noise[:m], 0, 255).astype(np.uint8)]
+    with concurrent.futures.ThreadPoolExecutor(native_threads()) as pool:
+        return [p for part in pool.map(make, range(0, n, chunk)) for p in part]
+
+
+def machine_record() -> dict:
+    """The host the card sits in: its cores, the CPU model, and the cgroup's
+    CPU quota where readable (read only)."""
+    out = {"cpu_count": os.cpu_count(), "affinity": len(os.sched_getaffinity(0))}
+    with contextlib.suppress(OSError):
+        with open("/proc/cpuinfo") as f:
+            out["cpu_model"] = next((line.split(":", 1)[1].strip() for line in f
+                                     if line.startswith("model name")), "not listed")
+    with contextlib.suppress(OSError):
+        with open("/sys/fs/cgroup/cpu.max") as f:
+            out["cgroup_cpu_max"] = f.read().strip()
+    return out
+
+
+def _write_payloads(d: str, payloads: list, labels, num_classes: int) -> None:
+    os.makedirs(d, exist_ok=True)
+    write_split(os.path.join(d, "train.idx"), os.path.join(d, "train.rec"), payloads,
+                list(labels), num_classes=num_classes)
+
+
+def native_rates(idx: str, rec: str, size: int, n: int, batch: int) -> dict:
+    """14c: images/s of the native reader over the rec's first ``n`` images
+    in batches of ``batch`` (host clock; one warm batch first) at 1, 2, 4, 8
+    threads and the affinity count, and the split of the one-thread run's
+    time between entropy decode and reconstruction."""
+    keys = np.arange(1, n + 1)
+    out = {"images": n, "rates": {}}
+    for threads in sorted({1, 2, 4, 8, native_threads()}):
+        reader = NativeReader(idx, rec, size, threads=threads)
+        reader.read_batch(keys[:batch])
+        native_mod.zero_counters()
+        t0 = time.perf_counter()
+        for b in range(0, n, batch):
+            reader.read_batch(keys[b:b + batch])
+        out["rates"][threads] = n / (time.perf_counter() - t0)
+        if threads == 1:
+            c = native_mod.counters
+            busy = c["entropy_s"] + c["reconstruct_s"]
+            out["one_thread_stages"] = {
+                "entropy_s": c["entropy_s"], "reconstruct_s": c["reconstruct_s"],
+                "entropy_share": c["entropy_s"] / busy,
+                "entropy_us_per_image": 1e6 * c["entropy_s"] / n,
+                "reconstruct_us_per_image": 1e6 * c["reconstruct_s"] / n}
+        reader.close()
+    return out
+
+
+def phase_native(root: str, val_dir: str, n_images: int = NATIVE_IMAGES,
+                 rate_images: int = NATIVE_RATE_IMAGES,
+                 variant_images: int = NATIVE_VARIANT_IMAGES, clients: int = 2,
+                 ids: int = 100, device: str = "cuda", network: str = "sphnet",
+                 embedding: int = 512, image_size: int = 112, batch: int = 256,
+                 eval_batch: int = 512, embed_batch: int = NATIVE_BATCH,
+                 workers: int = 6) -> dict:
+    """Phase 14, the native reader: 14a the build, the machine and the
+    card's name and power limit; 14b a JPEG rec of ``n_images`` (the
+    round's public set) and small variants, every image of the native
+    reader against ``codec.decode`` (the Python path's, read by the CLI's
+    ``BatchLoader`` with ``workers`` threads), none may differ; 14c
+    images/s of the reader at 1, 2, 4, 8 and the affinity count of threads,
+    of the Python loader and of one cv2 thread, beside the embed's; 14d one
+    round of run.sh's flags through the CLI over the JPEG root (``clients``
+    x ``ids`` IDs x 8 images, 10 veri images an ID; the .bin set at
+    ``val_dir``; the mined set capped at 6,500 images, as phase 8 caps it),
+    launch counts set to 0 before its rounds and read after, the native
+    counters, the public embed's span, then the round's global model over
+    the public set natively (its busy share) and over its first
+    ``rate_images`` on the Python path: images/s of both and the largest
+    difference between their features, which must be 0.  Returns the
+    launches of 14d."""
+    t_phase = time.perf_counter()
+    card = card_lines()[0] if device == "cuda" else "not measured (cpu)"
+    log("native", part="14a", card=json.dumps(card), build_s=native_mod.build_seconds,
+        build=" ".join(native_mod.build_command(native_mod.library_path())),
+        **{k: json.dumps(v) for k, v in machine_record().items()})
+    # 14b
+    encode = jpeg_encoder()
+    pub_dir = os.path.join(root, "split_pretrain_6000", "client_0000")
+    t0 = time.perf_counter()
+    payloads = jpeg_rec_payloads(n_images, image_size, encode, seed=14)
+    _write_payloads(pub_dir, payloads, np.arange(n_images) // 8, -(-n_images // 8))
+    figures = {"14b": {"images": n_images, "write_s": time.perf_counter() - t0,
+                       "mean_jpeg_bytes": float(np.mean([len(p) for p in payloads])),
+                       "encoder": encode.library}}
+    idx, rec = os.path.join(pub_dir, "train.idx"), os.path.join(pub_dir, "train.rec")
+    reader = NativeReader(idx, rec, image_size, threads=native_threads())
+    t0 = time.perf_counter()
+    one = [codec.decode(p) for p in payloads[:min(2048, n_images)]]
+    cv2_rate = len(one) / (time.perf_counter() - t0)
+    del payloads, one
+    differing = py_s = native_s = 0.0
+    pos = 0
+    with BatchLoader(FaceRecordDataset(pub_dir, use_native=False), embed_batch,
+                     shuffle=False, num_workers=workers) as loader:
+        batches = loader.epoch()
+        while True:
+            t0 = time.perf_counter()
+            ref = next(batches, None)
+            py_s += time.perf_counter() - t0
+            if ref is None:
+                break
+            nv = int(ref[2].sum())
+            t0 = time.perf_counter()
+            got, labels = reader.read_batch(np.arange(pos + 1, pos + nv + 1))
+            native_s += time.perf_counter() - t0
+            differing += int((got != ref[0][:nv]).sum()) + int((labels != ref[1][:nv]).sum())
+            pos += nv
+    variants = {}
+    for seed, (name, (size, options)) in enumerate(JPEG_VARIANTS.items()):
+        payloads = jpeg_rec_payloads(variant_images, size, jpeg_encoder(**options), seed)
+        d = os.path.join(root, "variants", name)
+        _write_payloads(d, payloads, np.arange(variant_images) // 8, -(-variant_images // 8))
+        got, _ = NativeReader(os.path.join(d, "train.idx"), os.path.join(d, "train.rec"),
+                              size).read_batch(np.arange(1, variant_images + 1))
+        variants[name] = sum(int((g != codec.decode(p)).sum()) for g, p in zip(got, payloads))
+    figures["14b"].update(differing_bytes=int(differing), compared=pos, variants=variants)
+    log("native", part="14b", **{k: json.dumps(v) for k, v in figures["14b"].items()})
+    if differing or any(variants.values()) or pos != n_images:
+        raise AssertionError(f"14b: the native reader differs from codec.decode: "
+                             f"{differing} bytes over {pos} images, variants {variants}")
+    # 14c
+    rates = native_rates(idx, rec, image_size, min(rate_images, n_images), embed_batch)
+    rates.update(python_loader_images_per_s=n_images / py_s, python_loader_workers=workers,
+                 native_loader_pass_images_per_s=n_images / native_s,
+                 cv2_one_thread_images_per_s=cv2_rate,
+                 embed_images_per_s=EMBED_IMAGES_PER_S)
+    rates["decode_is_slower"] = rates["rates"][native_threads()] < EMBED_IMAGES_PER_S
+    figures["14c"] = rates
+    log("native", part="14c", **{k: json.dumps(v) for k, v in rates.items()})
+
+    # 14d: run.sh's round over the JPEG root
+    write_fl_split(root, clients, ids, imgs_per_id=8, pub_ids=0, pub_imgs=0,
+                   size=image_size, seed=0, veri_imgs=10, encode=encode)
+    argv = with_flag(round_args(root, clients, ids, device=device, network=network,
+                                embedding=embedding, image_size=image_size, batch=batch,
+                                local_epochs=1, rounds=1, eval_batch=eval_batch),
+                     "--val_root", val_dir) + ["--HN_cap", "6500"]
+    native_mod.zero_counters()
+    run, history, launches, _ = drive(argv, tag="native")
+    counted = dict(native_mod.counters)
+    expect_launches(run, launches, {"max_sim": clients,
+                                    "roc_hist": 2 * len(run.server.local_candidates)}, "14d")
+    span = history[0]["spans"]["phase/public_embed"]
+    figures["14d"] = {"counters": counted, "launches": launches,
+                      "public_embed_span_s": span, "public_embed_images_per_s": n_images / span,
+                      "losses": history[0]["losses"], "round_s": history[0]["seconds"]}
+    if counted["batches"] == 0 or counted["images"] < n_images:
+        raise AssertionError(f"14d: the native reader decoded {counted}; the public set "
+                             f"alone is {n_images} images")
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    feats = {}
+
+    def native_embed():
+        feats["native"] = embed_mod.embed_dataset(run.server.global_net,
+                                                  FaceRecordDataset(pub_dir), embed_batch,
+                                                  device=dev, num_workers=workers)[0]
+    busy = card_busy(native_embed, [dev])
+    # the Python path over the set's first rate_images (the same batches)
+    m = min(rate_images, n_images)
+    t0 = time.perf_counter()
+    feats["python"] = embed_mod.embed_dataset(
+        run.server.global_net,
+        FaceRecordDataset(pub_dir, use_native=False).subset(np.arange(1, m + 1)),
+        embed_batch, device=dev, num_workers=workers)[0]
+    mesh_mod.synchronize([dev])
+    python_s = time.perf_counter() - t0
+    diff = float((feats["native"][:m] - feats["python"]).abs().max())
+    figures["14d"].update(native_embed_images_per_s=n_images / busy["wall_s"],
+                          card_busy=busy["busy_share"], python_embed_images=m,
+                          python_embed_images_per_s=m / python_s,
+                          max_abs_feature_diff=diff)
+    log("native", part="14d", **{k: json.dumps(v) for k, v in figures["14d"].items()})
+    if diff != 0.0:
+        raise AssertionError(f"14d: the public features differ by {diff} between the "
+                             f"native reader and the Python path")
+    figures["seconds"] = time.perf_counter() - t_phase
+    log("native", figures=json.dumps(figures, default=str))
+    return launches
+
+
 def main(argv: list) -> None:
     seconds = {}
 
@@ -3260,8 +3491,10 @@ def main(argv: list) -> None:
         seconds[name] = round(time.perf_counter() - t0, 2)
         return out
 
-    if argv not in ([], ["--phase", "12"], ["--phase", "12g"], ["--phase", "13"]):
-        raise SystemExit("usage: python3 chip_smoke.py [--phase 12 | --phase 12g | --phase 13]")
+    if argv not in ([], ["--phase", "12"], ["--phase", "12g"], ["--phase", "13"],
+                    ["--phase", "14"]):
+        raise SystemExit("usage: python3 chip_smoke.py "
+                         "[--phase 12 | --phase 12g | --phase 13 | --phase 14]")
     smi = timed("1_device", phase_device)
     timed("2_build", phase_build)
     if argv == ["--phase", "12g"]:
@@ -3273,9 +3506,14 @@ def main(argv: list) -> None:
             "count": torch.cuda.device_count()}}), flush=True)
         return
     if argv:
-        # phase 12 or 13 alone, on every GPU of the machine
+        # phase 12 or 13 alone, on every GPU of the machine; phase 14 alone
         with tempfile.TemporaryDirectory(prefix="fedfr_smoke_") as root:
-            if argv[1] == "12":
+            if argv[1] == "14":
+                write_bin(os.path.join(root, "val", "agedb_30.bin"), n_pairs=1200,
+                          size=112, seed=1)
+                timed("14_native", phase_native, os.path.join(root, "native"),
+                      os.path.join(root, "val"))
+            elif argv[1] == "12":
                 timed("12_mesh", phase_mesh, os.path.join(root, "mesh"), mesh_devices(),
                       ids=100, local_epochs=1)
             else:
@@ -3335,6 +3573,9 @@ def main(argv: list) -> None:
         by_phase["pretrain_mesh"] = timed(
             "13_pretrain_mesh", phase_pretrain_mesh, root, mesh_devices(),
             pretrain_argv(PRETRAIN_SPEC, os.path.join(root, "pretrain_mesh")))
+        # the native reader, and run.sh's round over a JPEG root
+        by_phase["native"] = timed("14_native", phase_native, os.path.join(root, "native"),
+                                   os.path.join(root, "val"))
     log("smoke", phase_seconds=json.dumps(seconds),
         total_s=round(sum(seconds.values()), 2))
     for record in (mining, roc, synth):

@@ -13,30 +13,48 @@ The port's copy of ``fedfr_tpu/data/datasets.py`` for rec roots:
   (reference dataset.py:73-142), and the local verification split; on a
   ``synth:`` root the device-generated universe of ``data/synthetic.py``.
 
-Decoding runs on a host thread pool; augmentation (random hflip) and
-normalization run on the device inside the train step, so the host only moves
-uint8 bytes.  ``synth:`` batches are generated on the device: the host moves
-only a few int32 words per image.
+A rec split is decoded by the native reader (``fedfr_tpu_torch/native``:
+C++ threads, its own JPEG decoder) where its first record is one the reader
+decodes and square; else on the Python path (``codec.decode`` on a host
+thread pool), with one log line that says why.  The plane is chosen once,
+when the split is opened (``use_native=False`` chooses the Python path):
+unlike the JAX package, a native split whose later record fails to decode
+raises instead of falling back.  Augmentation (random hflip) and
+normalization run on the device inside the train step, so the host only
+moves uint8 bytes.  ``synth:`` batches are generated on the device: the host
+moves only a few int32 words per image.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from . import codec
+from ..native import NativeReader
 from .recordio import IndexedRecordReader, SplitMeta, read_split_meta
 from .synthetic import (build_fl_synthetic, explicit_synth_keys,
                         is_synth_spec, parse_synth_spec, synth_device_batch)
+
+logger = logging.getLogger("fedfr_tpu_torch.data")
+
+
+def native_threads() -> int:
+    """The native reader's decode threads: every core this process may run
+    on (the JAX package takes 8)."""
+    return len(os.sched_getaffinity(0))
 
 
 class FaceRecordDataset:
     """A single indexed rec split: images keyed 1..N with integer labels."""
 
-    def __init__(self, root_dir: str, prefix: str = "train"):
+    def __init__(self, root_dir: str, prefix: str = "train",
+                 use_native: bool = True):
         idx_path = os.path.join(root_dir, f"{prefix}.idx")
         rec_path = os.path.join(root_dir, f"{prefix}.rec")
         self.reader = IndexedRecordReader(idx_path, rec_path)
@@ -44,6 +62,37 @@ class FaceRecordDataset:
         # active record keys; hard-negative mining installs a subset
         self.imgidx: np.ndarray = np.arange(1, self.meta.num_images + 1)
         self._labels: Optional[np.ndarray] = None
+        self._native: Optional[NativeReader] = None
+        if use_native and self.meta.num_images > 0:
+            self._native = self._open_native(idx_path, rec_path)
+
+    def _open_native(self, idx_path: str, rec_path: str) -> Optional[NativeReader]:
+        """The native reader where the split's first record is one it
+        decodes (FRAW, or a JPEG of a kind it supports) and is square (JAX
+        datasets.py ``_try_native``); else None, logged with the reason.  A
+        failed build raises."""
+        reader = NativeReader(idx_path, rec_path, threads=native_threads())
+        try:
+            h, w = reader.probe(int(self.imgidx[0]))
+        except IOError as e:
+            why = str(e)
+        else:
+            if h == w:
+                reader.image_size = h
+                return reader
+            why = f"its images are {h}x{w}, not square"
+        reader.close()
+        logger.info("%s: read on the Python path (%s)", rec_path, why)
+        return None
+
+    @property
+    def native(self) -> bool:
+        """Whether the native reader decodes this split."""
+        return self._native is not None
+
+    @property
+    def image_size(self) -> Optional[int]:
+        return self._native.image_size if self._native is not None else None
 
     @property
     def num_classes(self) -> Optional[int]:
@@ -58,27 +107,44 @@ class FaceRecordDataset:
 
     def read(self, pos: int) -> Tuple[np.ndarray, int]:
         """Decode active item ``pos`` -> (HWC uint8 image, label)."""
-        header, payload = self.reader.read_idx(int(self.imgidx[pos]))
+        key = int(self.imgidx[pos])
+        if self._native is not None:
+            imgs, labels = self._native.read_batch([key])
+            return imgs[0], int(labels[0])
+        header, payload = self.reader.read_idx(key)
         return codec.decode(payload), int(header.scalar_label)
+
+    def read_batch(self, positions: np.ndarray, out: Optional[np.ndarray] = None,
+                   rows: Optional[np.ndarray] = None):
+        """Native threaded batch decode of active items ``positions`` ->
+        ((N, S, S, 3) u8, (N,) int32 labels); None on the Python path.
+        ``out`` receives the images, item i at row ``rows[i]`` where given."""
+        if self._native is None:
+            return None
+        return self._native.read_batch(self.imgidx[np.asarray(positions)], out, rows)
 
     def all_labels(self) -> np.ndarray:
         """Labels of the active subset, from header-only reads of the full
         split (cached)."""
         if self._labels is None:
             n = self.meta.num_images
-            labels = np.empty(n, dtype=np.int32)
-            for key in range(1, n + 1):
-                labels[key - 1] = int(self.reader.read_header(key).scalar_label)
-            self._labels = labels
+            if self._native is not None:
+                self._labels = self._native.read_labels(np.arange(1, n + 1))
+            else:
+                labels = np.empty(n, dtype=np.int32)
+                for key in range(1, n + 1):
+                    labels[key - 1] = int(self.reader.read_header(key).scalar_label)
+                self._labels = labels
         return self._labels[self.imgidx - 1]
 
     def subset(self, imgidx: np.ndarray) -> "FaceRecordDataset":
-        """A shallow view over the same reader with a restricted key set."""
+        """A shallow view over the same readers with a restricted key set."""
         view = object.__new__(FaceRecordDataset)
         view.reader = self.reader
         view.meta = self.meta
         view.imgidx = np.asarray(imgidx)
         view._labels = self._labels
+        view._native = self._native
         return view
 
 
@@ -120,6 +186,35 @@ class CombinedDataset:
         img, label = self.public.read(pos - self.local_len)
         return img, label + self.shift
 
+    @property
+    def native(self) -> bool:
+        """Whether the native reader decodes both parts (of one image size)."""
+        return (getattr(self.local, "native", False) and getattr(self.public, "native", False)
+                and self.local.image_size == self.public.image_size)
+
+    @property
+    def image_size(self) -> Optional[int]:
+        return self.local.image_size if self.native else None
+
+    def read_batch(self, positions: np.ndarray, out: Optional[np.ndarray] = None):
+        """Each part's items through its native reader, straight into their
+        rows of one batch, public labels shifted (JAX datasets.py:189-215);
+        None unless both parts are native."""
+        if not self.native:
+            return None
+        positions = np.asarray(positions)
+        n, s = len(positions), self.image_size
+        if out is None:
+            out = np.empty((n, s, s, 3), dtype=np.uint8)
+        labels = np.empty(n, dtype=np.int32)
+        is_local = positions < self.local_len
+        for sel, ds, off, shift in ((is_local, self.local, 0, 0),
+                                    (~is_local, self.public, self.local_len, self.shift)):
+            rows = np.flatnonzero(sel)
+            if len(rows):
+                labels[rows] = ds.read_batch(positions[rows] - off, out, rows)[1] + shift
+        return out, labels
+
     def device_batch(self, positions: np.ndarray):
         """A mixed local + public batch of two splits of one ``synth:``
         universe as ONE generator launch (JAX datasets.py:159-188) ->
@@ -153,13 +248,16 @@ class BatchLoader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  seed: int = 100, drop_last: bool = False,
-                 num_workers: int = 6):
+                 num_workers: int = 6, pin_memory: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.rng = np.random.default_rng(seed)
         self.num_workers = max(1, num_workers)
+        # native batches decode straight into pinned memory (PyTorch's
+        # caching host allocator), for a consumer that copies them to a card
+        self.pin_memory = pin_memory
         self._pool: Optional[ThreadPoolExecutor] = None
 
     @property
@@ -181,6 +279,13 @@ class BatchLoader:
     def __exit__(self, *exc) -> None:
         self.close()
 
+    def _native_batch(self, idx: np.ndarray):
+        if not self.pin_memory:
+            return self.dataset.read_batch(idx)
+        s = self.dataset.image_size
+        imgs = torch.empty((len(idx), s, s, 3), dtype=torch.uint8, pin_memory=True)
+        return imgs, self.dataset.read_batch(idx, imgs.numpy())[1]
+
     def __len__(self) -> int:
         n = len(self.dataset)
         if self.drop_last:
@@ -191,15 +296,19 @@ class BatchLoader:
         """Yield (images u8 NHWC, labels i32, valid bool) for one epoch.
 
         A ``synth:`` dataset yields its images as a tensor on its device
-        (one generator launch a batch); a record dataset as host numpy from
-        the decode pool.  ``with_positions`` appends the batch's dataset positions (int32; pad
-        slots repeat the first position, as the images do), which the
-        cached-contrastive step gathers its frozen features by.
+        (one generator launch a batch); a native record dataset as host
+        numpy from one batch decode, or as a pinned CPU tensor under
+        ``pin_memory``; a record dataset on the Python path as host numpy
+        from the decode pool.  ``with_positions`` appends the batch's
+        dataset positions (int32; pad slots repeat the first position, as
+        the images do), which the cached-contrastive step gathers its
+        frozen features by.
         """
         n = len(self.dataset)
         order = self.rng.permutation(n) if self.shuffle else np.arange(n)
         bs = self.batch_size
         synthetic = getattr(self.dataset, "is_device_synthetic", False)
+        native = getattr(self.dataset, "native", False)
         for b in range(len(self)):
             idx = order[b * bs: (b + 1) * bs]
             valid = np.ones(bs, dtype=bool)
@@ -210,6 +319,9 @@ class BatchLoader:
             if synthetic:
                 imgs, labels = self.dataset.device_batch(idx)
                 yield (imgs, labels, valid) + pos
+                continue
+            if native:
+                yield self._native_batch(idx) + (valid,) + pos
                 continue
             items = list(self.pool.map(self.dataset.read, idx))
             imgs = np.stack([it[0] for it in items])
@@ -255,11 +367,14 @@ class AllClientData:
             if include_public:
                 self.public_dataset = self.synthetic_universe["public"]
         else:
+            native = cfg.data.use_native_loader
             self.client_datasets = [
-                FaceRecordDataset(os.path.join(cfg.data.split_dir, "client_%04d" % c))
+                FaceRecordDataset(os.path.join(cfg.data.split_dir, "client_%04d" % c),
+                                  use_native=native)
                 for c in range(cfg.data.num_clients)]
             if include_public:
-                self.public_dataset = FaceRecordDataset(cfg.data.public_dir)
+                self.public_dataset = FaceRecordDataset(cfg.data.public_dir,
+                                                        use_native=native)
         self.train_class_sizes = [int(d.num_classes or 0)
                                   for d in self.client_datasets]
 
@@ -272,4 +387,5 @@ class AllClientData:
         (``local_veri_4000``, labelled with global identity IDs)."""
         if self.synthetic_universe is not None:
             return self.synthetic_universe["veri"]
-        return FaceRecordDataset(veri_dir, prefix="test")
+        return FaceRecordDataset(veri_dir, prefix="test",
+                                 use_native=self.cfg.data.use_native_loader)

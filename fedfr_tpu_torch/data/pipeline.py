@@ -1,8 +1,9 @@
 """Host->device input pipeline: background decode + pinned, asynchronous copies.
 
 The port's counterpart of ``fedfr_tpu/data/pipeline.py``: a producer thread
-runs the BatchLoader epoch (threaded decode), pins each batch in page-locked
-host memory and issues ``.to(device, non_blocking=True)``, keeping ``depth``
+runs the BatchLoader epoch (threaded decode; a native batch is decoded
+straight into page-locked host memory, a Python-path batch is pinned by a
+copy) and issues ``.to(device, non_blocking=True)``, keeping ``depth``
 batches in flight so the device never waits on host decode.  uint8 on the
 wire; normalization and augmentation happen inside the train step.
 
@@ -76,8 +77,9 @@ def to_device_batch(parts, device: torch.device) -> Tuple[torch.Tensor, ...]:
     """numpy batch parts -> device tensors (pinned + non_blocking on CUDA).
 
     A part that is a tensor already (a ``synth:`` batch, generated on the
-    device) is moved only if it lies elsewhere: ``Tensor.to`` returns a
-    tensor already on ``device`` as it is."""
+    device, or a native batch decoded into pinned host memory) is moved as
+    it is, with no second host copy: ``Tensor.to`` returns a tensor already
+    on ``device`` as it is."""
     out = []
     for p in parts:
         if isinstance(p, torch.Tensor):
@@ -97,6 +99,8 @@ class DevicePrefetcher:
         self.loader = loader
         self.device = torch.device(device)
         self.depth = max(1, depth)
+        # a native loader feeding a card decodes into pinned memory
+        loader.pin_memory = self.device.type == "cuda"
 
     def __len__(self) -> int:
         return len(self.loader)

@@ -125,7 +125,7 @@ def embed_dataset(model: nn.Module, dataset, batch_size: int = 512,
     labels_out = np.empty(n, dtype=np.int64)
     pos = 0
     with BatchLoader(dataset, batch_size, shuffle=False, drop_last=False,
-                     num_workers=num_workers) as loader:
+                     num_workers=num_workers, pin_memory=device.type == "cuda") as loader:
         # only the images go to the devices; labels and the mask stay on
         # the host, so the loop never waits for the device
         batches = ((embed.place(imgs), labels, valid)
@@ -176,7 +176,7 @@ def embed_flip_caches(models: Sequence[nn.Module], dataset, batch_size: int = 51
         embeds.append(ShardedEmbed(model, mesh))
     chunks: List[List[torch.Tensor]] = [[] for _ in models]
     with BatchLoader(dataset, batch_size, shuffle=False, drop_last=False,
-                     num_workers=num_workers) as loader:
+                     num_workers=num_workers, pin_memory=device.type == "cuda") as loader:
         batches = ((embeds[0].place(imgs), valid)
                    for imgs, _labels, valid in loader.epoch())
         for (blocks, b), valid in prefetched(batches, prefetch):

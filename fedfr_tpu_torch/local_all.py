@@ -78,6 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="reference-compat alias (bf16 trunk is default)")
     p.add_argument("--batch_size", type=int, default=512)
     p.add_argument("--fp32", action="store_true")
+    p.add_argument("--no_native_loader", action="store_true",
+                   help="decode rec splits on the Python path (codec.decode on "
+                        "a thread pool) instead of the native reader")
     p.add_argument("--converter_layer", type=int, default=1,
                    help="BCE transformation layer used in training: "
                         "1=linear, else BottleBlock")
@@ -124,13 +127,15 @@ def main(args) -> Dict[str, List]:
     """Run the evaluation; returns the per-client tables (1:1) or TPIR
     lists (1:n) under ``per_client`` and their mean under ``mean``."""
     device = resolve_device(args.device)
+    # a Namespace of the JAX CLI's flags alone reads natively
+    native = not getattr(args, "no_native_loader", False)
     universe = None
     if is_synth_spec(args.data_dir):
         universe = synth_universe(args, device)
         veri = universe["veri"]
         image_size = veri.image_size
     else:
-        veri = FaceRecordDataset(args.data_dir, prefix="test")
+        veri = FaceRecordDataset(args.data_dir, prefix="test", use_native=native)
         image_size = veri.read(0)[0].shape[0]
     ids_per_client = args.num_ids // args.num_client
     net = build_backbone(args.network, args.embedding_size, bf16=not args.fp32,
@@ -181,8 +186,8 @@ def main(args) -> Dict[str, List]:
                 gfeats = torch.cat([f for (f, _), _ in parts])
                 glabels = np.concatenate([lb + base for (_, lb), base in parts])
             else:
-                gfeats, glabels = embed(FaceRecordDataset(args.gallery_data_dir,
-                                                          prefix="test"))
+                gfeats, glabels = embed(FaceRecordDataset(
+                    args.gallery_data_dir, prefix="test", use_native=native))
             gallery_means = class_mean_features(gfeats, glabels, args.num_ids)
         for c in range(args.num_client):
             start, end = c * ids_per_client, (c + 1) * ids_per_client
@@ -194,7 +199,8 @@ def main(args) -> Dict[str, List]:
                                            gallery_means[start:end], start, end))
     else:
         if args.task == "1:n" and universe is None:
-            gallery = FaceRecordDataset(args.gallery_data_dir, prefix="test")
+            gallery = FaceRecordDataset(args.gallery_data_dir, prefix="test",
+                                        use_native=native)
             gallery_labels = gallery.all_labels()
         for c in range(args.num_client):
             print(f"Process client {c}...")

@@ -105,6 +105,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--weight_decay", type=float, default=5e-4)
     p.add_argument("--sample_rate", type=float, default=1.0)
     p.add_argument("--num_workers", type=int, default=6)
+    p.add_argument("--no_native_loader", action="store_true",
+                   help="decode rec splits on the Python path (codec.decode on "
+                        "a thread pool) instead of the native reader")
     p.add_argument("--log_every", type=int, default=50)
     p.add_argument("--seed", type=int, default=100)
     p.add_argument("--dropout", type=float, default=0.0,
@@ -139,7 +142,7 @@ def public_dataset(args, device: torch.device):
                                  f"passes {k}={v}; drop one of the two")
             spec[k] = v
         return build_fl_synthetic(spec, device)["public"]
-    return FaceRecordDataset(args.data_dir)
+    return FaceRecordDataset(args.data_dir, use_native=not args.no_native_loader)
 
 
 def initial_state(args, num_classes: int) -> Tuple[nn.Module, torch.Tensor]:

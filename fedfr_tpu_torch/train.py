@@ -127,6 +127,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--local_rec", default="", help="local_veri_4000 dir")
     p.add_argument("--val_targets", default="agedb_30")
     p.add_argument("--num_workers", default=6, type=int)
+    p.add_argument("--no_native_loader", action="store_true",
+                   help="decode rec splits on the Python path (codec.decode on "
+                        "a thread pool) instead of the native reader")
     p.add_argument("--seed", default=100, type=int)
     p.add_argument("--embedding_size", default=512, type=int)
     p.add_argument("--image_size", default=112, type=int)
@@ -206,6 +209,7 @@ def build_config(args) -> FedFRConfig:
     cfg.data.public_batch_size = args.public_batch_size
     cfg.data.eval_batch_size = args.eval_batch_size
     cfg.data.num_workers = args.num_workers
+    cfg.data.use_native_loader = not args.no_native_loader
     cfg.model.network = args.network
     cfg.loss.loss = args.loss
     cfg.optim.lr = args.lr

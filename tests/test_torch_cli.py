@@ -12,7 +12,8 @@
   ``--fedface``, and the source snapshot in ``<output_dir>/code``; and
   chip_smoke.py's phases, rehearsed on the CPU (phase 4 with the CLI's
   ``--profile``, phase 8 on a tiny ``synth:`` universe, phase 11's
-  lockstep rounds over 3 clients).
+  lockstep rounds over 3 clients, phase 14's native reader and its round
+  over a JPEG root).
 """
 
 import ast
@@ -311,9 +312,8 @@ def test_chip_smoke_mesh_phase_rehearsed_on_cpu(tmp_path):
 
 
 def test_chip_smoke_pretrain_mesh_phase_rehearsed_on_cpu(tmp_path):
-    """The smoke's phase 13 at toy size on two shards of the CPU: item 9's
-    JPEG rec read by the port's loader, the sharded losses against one
-    device at 6,000 and 6,001 classes (13a), the pretraining CLI over the
+    """The smoke's phase 13 at toy size on two shards of the CPU: the
+    sharded losses against one device at 6,000 and 6,001 classes (13a), the pretraining CLI over the
     mesh (a full epoch, a sampled one, the replicas and artefact checks)
     and against one device in bf16 and fp32 (13b), the step figures (13c);
     no launch is counted here."""
@@ -326,10 +326,25 @@ def test_chip_smoke_pretrain_mesh_phase_rehearsed_on_cpu(tmp_path):
     argv = chip_smoke.with_flag(argv, "--log_every", "2") + ["--num_workers", "2"]
     launches = chip_smoke.phase_pretrain_mesh(
         str(tmp_path), devices, argv, short_spec=spec.replace("public_imgs=48", "public_imgs=24"),
-        jpeg_images=64, iters=2)
+        iters=2)
     assert launches == NO_LAUNCHES
     assert os.path.exists(tmp_path / "pre_sampled" / "fc.pth")
     assert torch.load(tmp_path / "pre" / "fc.pth").shape == (21, 16)
+
+
+def test_chip_smoke_native_phase_rehearsed_on_cpu(smoke_root, tmp_path):
+    """The smoke's phase 14 at toy size on the CPU: the JPEG rec and its
+    variants read natively byte for byte as ``codec.decode`` reads them
+    (14b), the reader's rates (14c), and run.sh's round over the JPEG root
+    through the CLI with the native counters, then the public embed on both
+    planes with equal features (14d); no launch is counted here."""
+    launches = chip_smoke.phase_native(
+        str(tmp_path / "native"), os.path.join(smoke_root, "val"), n_images=64,
+        rate_images=32, variant_images=8, clients=CLIENTS, ids=IDS, device="cpu",
+        network="toy", embedding=16, image_size=IMG, batch=8, eval_batch=16,
+        embed_batch=16, workers=2)
+    assert launches == NO_LAUNCHES
+    assert os.path.exists(tmp_path / "native" / "run" / "backbone_0.pth")
 
 
 def test_chip_smoke_reference_phase_rehearsed_on_cpu(smoke_root, tmp_path, monkeypatch):

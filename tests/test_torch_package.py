@@ -75,10 +75,10 @@ def _imports(tree):
 # payloads need none; PIL is its fallback), the .bin loader's resize of
 # images that are not 112x112 already, and PCA before the k-fold threshold
 # sweep (pca > 0; the reference's default is 0); and the smoke's JPEG
-# encoder for ROADMAP item 9's measurement, imported only where the machine
-# has cv2 (else PIL, else no JPEG rec)
+# encoder for its native-reader phase, imported only where the machine has
+# cv2 (else PIL)
 OPTIONAL_IMPORTS = {
-    "chip_smoke.py": [("cv2", "jpeg_decode_rate")],
+    "chip_smoke.py": [("cv2", "jpeg_encoder")],
     "fedfr_tpu_torch/data/codec.py": [("cv2", None)],
     "fedfr_tpu_torch/evalsuite/verification.py": [("cv2", "_resize_short")],
     "fedfr_tpu_torch/ops/kfold.py": [("sklearn", "calculate_roc")],
@@ -88,10 +88,11 @@ OPTIONAL_IMPORTS = {
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]))
 def test_source_imports_no_pandas_or_sklearn_and_cv2_only_in_align_face(path):
-    """The card's machine has neither pandas nor scikit-learn nor cv2: the
-    port reads the IJB-C meta files and draws the ROC in numpy, and imports
-    cv2 for IJB-C only inside ``align_face`` (aligning loose crops); the
-    earlier slices' optional imports are listed in OPTIONAL_IMPORTS."""
+    """The card's machine has neither pandas nor scikit-learn, and the
+    port's rec reading no longer needs cv2 (the native reader carries its
+    own JPEG decoder): the port reads the IJB-C meta files and draws the ROC
+    in numpy, and imports cv2 for IJB-C only inside ``align_face`` (aligning
+    loose crops); the optional imports are listed in OPTIONAL_IMPORTS."""
     found = _imports(ast.parse((REPO / path).read_text(), filename=path))
     got = [(m.split(".")[0], func) for m, func in found
            if m.split(".")[0] in ("pandas", "sklearn", "cv2")]
