@@ -229,7 +229,24 @@ Phases, in order (any failure raises and the script exits non-zero):
    13c  both losses' step ms and samples/s over the mesh and on one device
         (host clock, every device synchronized), each card's peak memory,
         and each card's busy share over 4 full-softmax steps (12g's
-        ``card_busy``).
+        ``card_busy``);
+   13d  BN over the whole batch: iresnet100 (154 BatchNorm layers, counted
+        from the model and logged), BN_STEPS = 2 of the pretraining CLI's
+        full-softmax step (its training state and step) on the first
+        batches of ``synth:public_imgs=6144`` from its initial weights,
+        launches counted from 0.  At batch 512 over the mesh, on one
+        device, on one device with the trunk in fp32, and over the mesh
+        with each shard's BN over its own rows (the control): after the
+        first step every BN running statistic and every parameter of the
+        mesh within MESH_TOL_FACTOR x that tensor's own bf16-vs-fp32
+        distance (norms of the differences; the first losses logged
+        beside), the control beyond.  At 64 images a step in float64 over
+        the mesh, on one device and as the control: the mesh's losses and,
+        after the steps, its BN running statistics within 1e-10 of one
+        device's, the control beyond.  The replicas bit for bit shard 0's
+        after every run.  Then the full-softmax step at 512 over the mesh
+        and on one device (ms, samples/s, peak memory, each card's busy
+        share over 2 steps).
 
 14. native — the native reader (``fedfr_tpu_torch/native``: C++ threads,
    its own JPEG decoder) and run.sh's round over a JPEG rec root:
@@ -251,7 +268,9 @@ Phases, in order (any failure raises and the script exits non-zero):
         public set, 2,000 veri images, sphere64, E=512, batch 256),
         launches set to 0 before and read after (mining, ROC), the native
         counters (> 0: the public embed, the mined subset's training, the
-        local eval), the ``phase/public_embed`` span's images/s; then the
+        local eval; no split switched to the Python path, since the reader
+        decodes every JPEG of the root), the ``phase/public_embed`` span's
+        images/s; then the
         round's global model over the public set natively (the card's busy
         share, ``card_busy``) and over its first 8,192 images on the Python
         path (``use_native=False``): images/s of both and the largest
@@ -287,8 +306,8 @@ and 12c-12d together); the last line is the device record.  ``--phase 12``,
     rounds for 12c, 1 round each for 12d; 12b 61,440 of 420,671 public
     images;
   * (phase 13) the public set cut as phase 9's for the full epoch and to
-    6,144 images (all 6,000 IDs) for the sampled epoch and the comparison's
-    12 steps (reference: 16 epochs of 420,671 images);
+    6,144 images (all 6,000 IDs) for the sampled epoch, 13b's 12 steps
+    and 13d's 2 (reference: 16 epochs of 420,671 images);
   * (phase 14) a JPEG public set of 32,768 images (reference: 420,671),
     the mined set capped at 6,500 images as in phase 8, 1 local epoch, 1
     round.
@@ -298,6 +317,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import gc
 import glob
 import json
 import math
@@ -1896,18 +1916,19 @@ def with_flag(argv: list, flag: str, value: str) -> list:
 
 
 def time_pretrain_steps(args, dataset, u8: torch.Tensor, labels: torch.Tensor,
-                        iters: int = 10, devices=None) -> dict:
-    """The pretraining step (full and sampled Partial FC) on one batch
-    (``u8``, ``labels``) of ``dataset`` from the CLI's initial weights, over
-    ``devices`` (default: the dataset's device alone): ms per step and
-    samples/s over ``iters`` steps back to back, three runs, after two
-    warm-up steps; CUDA events on one card, else the host clock with every
-    device synchronized (medians).  Each card's peak memory over the
-    steps."""
+                        iters: int = 10, devices=None,
+                        forms=(("full", 1.0), ("sampled", 0.1))) -> dict:
+    """The pretraining step (``forms``: the full and the sampled Partial
+    FC, by sample rate) on one batch (``u8``, ``labels``) of ``dataset``
+    from the CLI's initial weights, over ``devices`` (default: the
+    dataset's device alone): ms per step and samples/s over ``iters`` steps
+    back to back, three runs, after two warm-up steps; CUDA events on one
+    card, else the host clock with every device synchronized (medians).
+    Each card's peak memory over the steps."""
     devices = devices or [dataset.device]
     on_card = devices[0].type == "cuda"
     out = {}
-    for name, rate in (("full", 1.0), ("sampled", 0.1)):
+    for name, rate in forms:
         t0 = time.perf_counter()
         state = pretrain_cli.training_state(args, dataset.num_classes, devices)
         state_s = time.perf_counter() - t0
@@ -3088,9 +3109,237 @@ def check_sharded_losses(devices: list, batch: int, embedding: int, classes: int
     return out
 
 
+# 13d: BN_STEPS steps from the CLI's initial weights.  The bf16 runs are
+# compared after the first step, before they drift apart (at the CLI's lr
+# 0.05 the losses of three runs from one start are ~10 apart after 12
+# steps).  The float64 runs are compared after the last at BN_F64_TOL
+# (they agree within 1e-14 on the card), at BN_F64_BATCH images a step.
+BN_STEPS = 2
+BN_F64_BATCH = 64
+BN_F64_TOL = 1e-10
+
+
+@contextlib.contextmanager
+def float64_steps():
+    """Every float the pretraining step makes in float64 inside (13d's
+    exact check): the default dtype, and ``Tensor.float`` (the port's casts
+    at the input, in iresnet and in the losses) made ``Tensor.double``."""
+    cast = torch.Tensor.float
+    torch.Tensor.float = torch.Tensor.double
+    torch.set_default_dtype(torch.float64)
+    try:
+        yield
+    finally:
+        torch.set_default_dtype(torch.float32)
+        torch.Tensor.float = cast
+
+
+def float_state(module: torch.nn.Module) -> dict:
+    """``module``'s floating state (every parameter and BN running
+    statistic), fp64 on the host."""
+    return {k: v.detach().double().cpu() for k, v in module.state_dict().items()
+            if v.is_floating_point()}
+
+
+def bn_steps(args, num_classes: int, devices: list, batches: list,
+             whole_batch: bool = True, f64: bool = False) -> dict:
+    """``batches`` [(u8, labels)] through the pretraining CLI's full-softmax
+    step (its ``training_state`` and ``make_train_step``) from its initial
+    weights over ``devices``; ``whole_batch=False`` is 13d's control, the
+    data-parallel backbone with each shard's BN over its own rows; ``f64``
+    casts the state and runs the steps under ``float64_steps``.  Each
+    step's loss, the backbone's ``float_state`` after the first step and
+    after the last, its BN layers' names, and whether every replica equals
+    shard 0's bit for bit."""
+    t0 = time.perf_counter()
+    state = pretrain_cli.training_state(args, num_classes, devices)
+    if not whole_batch:
+        state.backbone.sync_bn = False
+    if f64:
+        for replica in state.backbone.replicas:
+            replica.double()
+        for w in state.weights:
+            w.data = w.data.double()
+    step = pretrain_cli.make_train_step(args, state.num_valid, None)
+    key = prng_key(args.seed)
+    module = state.backbone.module
+    losses, first = [], None
+    with float64_steps() if f64 else contextlib.nullcontext():
+        for i, (u8, labels) in enumerate(batches):
+            losses.append(float(step(state, u8, labels, args.lr,
+                                     pretrain_cli.step_key(key, 0, i))))
+            first = first or float_state(module)
+    out = {"losses": losses, "shards": len(state.devices), "first": first,
+           "last": float_state(module),
+           "bn_layers": [n for n, m in module.named_modules()
+                         if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)],
+           "replicas_bitwise_equal": state.backbone.replicas_equal()}
+    mesh_mod.synchronize(devices)
+    out["seconds"] = time.perf_counter() - t0
+    del state, module
+    gc.collect()
+    if devices[0].type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def bn_report(got: dict, one: dict, fp32: dict) -> dict:
+    """13d's bound on a bf16 run ``got`` against the one-device run in bf16
+    (``one``) and with the trunk in fp32 (``fp32``), each ``bn_steps``'s:
+    after the first step every BN layer's running mean and running
+    variance (the forward's batch statistics) and every parameter (the
+    backward's step) within MESH_TOL_FACTOR x that tensor's own
+    bf16-vs-fp32 distance, distances as norms of the differences.  The
+    first losses' distances are reported beside: each is one draw of the
+    runs' rounding noise, and a ratio of two such draws exceeds 3 about a
+    fifth of the time however right the runs are.  The tensor nearest its
+    bound of each kind, the tensors beyond it, and ``ok``."""
+    loss = {"max_abs_diff": abs(got["losses"][0] - one["losses"][0]),
+            "bf16_vs_fp32": abs(one["losses"][0] - fp32["losses"][0])}
+    beyond, nearest = {"running": [], "parameters": []}, {}
+    for name, ref in one["first"].items():
+        d = float((got["first"][name] - ref).norm())
+        o = float((ref - fp32["first"][name]).norm())
+        ratio = d / o if o > 0 else (math.inf if d > 0 else 0.0)
+        kind = "running" if ".running_" in name else "parameters"
+        if kind not in nearest or ratio > nearest[kind]["ratio"]:
+            nearest[kind] = {"tensor": name, "norm_diff": d, "bf16_vs_fp32": o,
+                             "ratio": ratio}
+        if not d <= MESH_TOL_FACTOR * o:
+            beyond[kind].append(name)
+    return {"loss": loss, "tensors": len(one["first"]), "nearest": nearest,
+            "beyond": {k: len(v) for k, v in beyond.items()},
+            "beyond_first": [n for v in beyond.values() for n in v][:3],
+            "ok": not any(beyond.values())}
+
+
+def bn_f64_report(got: dict, one: dict) -> dict:
+    """13d's exact bound on a float64 run ``got`` against one device's:
+    every step's loss within BN_F64_TOL relative, and after the last step
+    every BN layer's running means and variances (the later forwards' batch
+    statistics, so also the backward's steps) within BN_F64_TOL of one
+    device's in units of its running variance: each channel's mean
+    difference over its standard deviation and its variance difference
+    over its variance (a running mean can be ~0: a BN's input with
+    zero-mean parts).  The largest of each, the layers beyond, and
+    ``ok``."""
+    losses = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], one["losses"]))
+    err = {}
+    for k in one["last"]:
+        if k.endswith(".running_mean"):
+            layer = k[:-len(".running_mean")]
+            var = one["last"][layer + ".running_var"]
+            d_mean = got["last"][k] - one["last"][k]
+            d_var = got["last"][layer + ".running_var"] - var
+            err[layer] = max(float((d_mean.abs() / var.sqrt()).max()),
+                             float((d_var.abs() / var).max()))
+    worst = max(err, key=err.get)
+    beyond = [k for k, v in err.items() if not v <= BN_F64_TOL]
+    return {"losses_rel": losses, "bn_layers": len(err),
+            "worst": {"layer": worst, "err": err[worst]}, "beyond": len(beyond),
+            "ok": losses <= BN_F64_TOL and not beyond}
+
+
+def pretrain_bn_mesh(devices: list, argv: list, spec: str, network: str,
+                     iters: int) -> tuple:
+    """13d: BN over the whole batch.  ``network`` (a net with BatchNorm) at
+    ``argv``'s widths: BN_STEPS full-softmax steps of the pretraining CLI
+    (``bn_steps``) on the first batches of ``spec``, launch counts set to 0
+    before the runs and read after (one synth_gen launch a batch).  At
+    ``argv``'s batch, over the mesh, on one device, on one device with the
+    trunk in fp32, and over the mesh with BN over each shard (the control):
+    the mesh within ``bn_report``'s bound, the control beyond it.  At
+    BN_F64_BATCH in float64, over the mesh, on one device and as the
+    control: the mesh within ``bn_f64_report``'s bound, the control beyond
+    it.  The replicas bit for bit shard 0's after every run.  Then the
+    full-softmax step at ``argv``'s batch over the mesh and on one device:
+    ms and samples/s (``iters`` steps a run), each card's peak memory and
+    busy share over 2 steps.  Returns (figures, launches)."""
+    home = devices[0]
+    on_card = home.type == "cuda"
+    base = with_flag(with_flag(argv, "--data_dir", spec), "--network", network)
+    parse = pretrain_cli.build_parser().parse_args
+    args, args_fp32 = parse(base), parse(base + ["--fp32"])
+    b = args.batch_size
+    zero_launches()
+    dataset = pretrain_cli.public_dataset(args, home)
+    batches = []
+    for i in range(BN_STEPS):
+        u8, labels = dataset.device_batch(np.arange(i * b, (i + 1) * b))
+        batches.append((u8, torch.from_numpy(labels).to(home)))
+    small = [(u8[:BN_F64_BATCH], labels[:BN_F64_BATCH]) for u8, labels in batches]
+    recs = {}
+    for name, run_args, devs, whole, f64 in (
+            ("mesh", args, devices, True, False), ("one", args, [home], True, False),
+            ("one_fp32", args_fp32, [home], True, False),
+            ("control", args, devices, False, False),
+            ("mesh_f64", args_fp32, devices, True, True),
+            ("one_f64", args_fp32, [home], True, True),
+            ("control_f64", args_fp32, devices, False, True)):
+        recs[name] = rec = bn_steps(run_args, dataset.num_classes, devs,
+                                    small if f64 else batches, whole, f64)
+        log("pretrain_mesh", part="13d", run=name, network=network,
+            batch=BN_F64_BATCH if f64 else b, seconds=f"{rec['seconds']:.2f}",
+            shards=rec["shards"], bn_layers=len(rec["bn_layers"]),
+            replicas_bitwise_equal=rec["replicas_bitwise_equal"], losses=rec["losses"])
+        if (not all(math.isfinite(v) for v in rec["losses"]) or not rec["bn_layers"]
+                or rec["shards"] != len(devs) or not rec["replicas_bitwise_equal"]):
+            raise AssertionError(f"13d {name}: shards {rec['shards']}, losses "
+                                 f"{rec['losses']}, replicas equal "
+                                 f"{rec['replicas_bitwise_equal']}, "
+                                 f"{len(rec['bn_layers'])} BN layers")
+    launches = read_launches()
+    expect = {"max_sim": 0, "roc_hist": 0, "synth_gen": BN_STEPS}
+    if on_card and launches != expect:
+        raise AssertionError(f"13d launches {launches}, expected {expect}")
+
+    reports = {"mesh": bn_report(recs["mesh"], recs["one"], recs["one_fp32"]),
+               "control": bn_report(recs["control"], recs["one"], recs["one_fp32"]),
+               "mesh_f64": bn_f64_report(recs["mesh_f64"], recs["one_f64"]),
+               "control_f64": bn_f64_report(recs["control_f64"], recs["one_f64"])}
+    figures = {"network": network, "batch": b, "f64_batch": BN_F64_BATCH, "steps": BN_STEPS,
+               "bn_layers": len(recs["one"]["bn_layers"]), "launches": launches, **reports,
+               "runs": {k: {"seconds": v["seconds"], "losses": v["losses"]}
+                        for k, v in recs.items()}}
+    for name, report in reports.items():
+        log("pretrain_mesh", part="13d", checked=name, network=network, report=json.dumps(report))
+    for name in ("mesh", "mesh_f64"):
+        if not reports[name]["ok"]:
+            raise AssertionError(f"13d {name}: the mesh differs from one device beyond "
+                                 f"the bound: {reports[name]}")
+    for name in ("control", "control_f64"):
+        if reports[name]["ok"]:
+            raise AssertionError(f"13d {name}: BN over each shard is within the bound, "
+                                 f"which so cannot tell it from BN over the whole batch: "
+                                 f"{reports[name]}")
+    del recs
+
+    # the step over the mesh and on one device
+    u8, labels = batches[0]
+    figures["step"], figures["busy"] = {}, {}
+    for name, devs in (("one", [home]), ("mesh", devices)):
+        figures["step"][name] = time_pretrain_steps(args, dataset, u8, labels, iters, devs,
+                                                    forms=(("full", 1.0),))["full"]
+        state = pretrain_cli.training_state(args, dataset.num_classes, devs)
+        step = pretrain_cli.make_train_step(args, state.num_valid, None)
+        key = pretrain_cli.step_key(prng_key(args.seed + 7), 0, 0)
+        step(state, u8, labels, args.lr, key)
+
+        def window():
+            for _ in range(2):
+                step(state, u8, labels, args.lr, key)
+        figures["busy"][name] = card_busy(window, devices)
+        del state
+        log("pretrain_mesh", part="13d", run=name, network=network, batch=b,
+            step=json.dumps(figures["step"][name]), busy=json.dumps(figures["busy"][name]))
+    if on_card:
+        torch.cuda.empty_cache()
+    return figures, launches
+
+
 def phase_pretrain_mesh(root: str, devices: list, argv: list,
                         short_spec: str = SHORT_PRETRAIN_SPEC,
-                        iters: int = 5) -> dict:
+                        iters: int = 5, bn_network: str = "iresnet100") -> dict:
     """Phase 13: pretraining on every device of ``devices`` (the ``model``
     axis; ``[d, d]`` is two shards of one device) at ``argv``'s widths
     (``pretrain_argv``).  13a the sharded
@@ -3103,8 +3352,11 @@ def phase_pretrain_mesh(root: str, devices: list, argv: list,
     one device in bf16 and with the trunk in fp32 (the losses of every step
     within MESH_TOL_FACTOR x the one-device run's own bf16-vs-fp32
     distance); 13c step ms and samples/s of both losses over the mesh and
-    on one device, each card's peak memory and busy share.  Returns the
-    launches of 13b."""
+    on one device, each card's peak memory and busy share; 13d BN over the
+    whole batch (``pretrain_bn_mesh``): BN_STEPS of ``bn_network``'s
+    pretraining steps on ``short_spec`` over the mesh against one device in
+    bf16, fp32 and float64, and BN over each shard as the control.
+    Returns the launches of 13b and 13d."""
     home = devices[0]
     on_card = home.type == "cuda"
     mesh_arg = None if devices == mesh_mod.visible_devices(home.type) else devices
@@ -3216,8 +3468,14 @@ def phase_pretrain_mesh(root: str, devices: list, argv: list,
         log("pretrain_mesh", part="13c", run=name,
             steps=json.dumps(figures["13c"]["steps"][name]),
             busy=json.dumps(figures["13c"]["busy"][name]))
+    del dataset, u8, batch_labels
     if on_card:
         torch.cuda.empty_cache()
+
+    # 13d: BN over the whole batch; iresnet100's step over the mesh takes
+    # 1-3 s: 1 step a timed run
+    figures["13d"], bn_launches = pretrain_bn_mesh(devices, argv, short_spec, bn_network, 1)
+    launches = {k: launches[k] + bn_launches[k] for k in launches}
     log("pretrain_mesh", figures=json.dumps(figures, default=str))
     return launches
 
@@ -3446,9 +3704,10 @@ def phase_native(root: str, val_dir: str, n_images: int = NATIVE_IMAGES,
     figures["14d"] = {"counters": counted, "launches": launches,
                       "public_embed_span_s": span, "public_embed_images_per_s": n_images / span,
                       "losses": history[0]["losses"], "round_s": history[0]["seconds"]}
-    if counted["batches"] == 0 or counted["images"] < n_images:
+    # every JPEG of the root is one the reader decodes: no split switches
+    if counted["batches"] == 0 or counted["images"] < n_images or counted["switches"]:
         raise AssertionError(f"14d: the native reader decoded {counted}; the public set "
-                             f"alone is {n_images} images")
+                             f"alone is {n_images} images, and no split may switch")
     dev = torch.device(device)
     if dev.type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device())

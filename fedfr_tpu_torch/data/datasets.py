@@ -16,10 +16,12 @@ The port's copy of ``fedfr_tpu/data/datasets.py`` for rec roots:
 A rec split is decoded by the native reader (``fedfr_tpu_torch/native``:
 C++ threads, its own JPEG decoder) where its first record is one the reader
 decodes and square; else on the Python path (``codec.decode`` on a host
-thread pool), with one log line that says why.  The plane is chosen once,
-when the split is opened (``use_native=False`` chooses the Python path):
-unlike the JAX package, a native split whose later record fails to decode
-raises instead of falling back.  Augmentation (random hflip) and
+thread pool), with one log line that says why (``use_native=False`` chooses
+the Python path).  Where a later record fails natively, the split and every
+view of it go on on the Python path for good, as the JAX package's reader
+does: one warning names the key and the reason, ``native.counters``
+counts the switch, and the batch that failed is decoded again on the Python
+path, so every image is cv2's.  Augmentation (random hflip) and
 normalization run on the device inside the train step, so the host only
 moves uint8 bytes.  ``synth:`` batches are generated on the device: the host
 moves only a few int32 words per image.
@@ -29,6 +31,7 @@ from __future__ import annotations
 
 import logging
 import os
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Tuple
 
@@ -36,12 +39,14 @@ import numpy as np
 import torch
 
 from . import codec
+from .. import native as native_mod
 from ..native import NativeReader
 from .recordio import IndexedRecordReader, SplitMeta, read_split_meta
 from .synthetic import (build_fl_synthetic, explicit_synth_keys,
                         is_synth_spec, parse_synth_spec, synth_device_batch)
 
 logger = logging.getLogger("fedfr_tpu_torch.data")
+_switch_lock = threading.Lock()
 
 
 def native_threads() -> int:
@@ -62,9 +67,11 @@ class FaceRecordDataset:
         # active record keys; hard-negative mining installs a subset
         self.imgidx: np.ndarray = np.arange(1, self.meta.num_images + 1)
         self._labels: Optional[np.ndarray] = None
-        self._native: Optional[NativeReader] = None
+        # the native reader, or None on the Python path; one box shared with
+        # every subset view, so that a switch holds for all of them
+        self._plane: List[Optional[NativeReader]] = [None]
         if use_native and self.meta.num_images > 0:
-            self._native = self._open_native(idx_path, rec_path)
+            self._plane[0] = self._open_native(idx_path, rec_path)
 
     def _open_native(self, idx_path: str, rec_path: str) -> Optional[NativeReader]:
         """The native reader where the split's first record is one it
@@ -84,6 +91,21 @@ class FaceRecordDataset:
         reader.close()
         logger.info("%s: read on the Python path (%s)", rec_path, why)
         return None
+
+    @property
+    def _native(self) -> Optional[NativeReader]:
+        return self._plane[0]
+
+    def _switch_to_python(self, reader: NativeReader, err: IOError) -> None:
+        """A record ``reader`` rejects after the split opened natively: the
+        split goes on on the Python path for good (JAX datasets.py:62-72),
+        with one warning and one count however many threads hit it."""
+        with _switch_lock:
+            if self._plane[0] is not reader:
+                return
+            self._plane[0] = None
+        native_mod.count_switch()
+        logger.warning("%s; the split goes on on the Python path (cv2) for good", err)
 
     @property
     def native(self) -> bool:
@@ -108,9 +130,16 @@ class FaceRecordDataset:
     def read(self, pos: int) -> Tuple[np.ndarray, int]:
         """Decode active item ``pos`` -> (HWC uint8 image, label)."""
         key = int(self.imgidx[pos])
-        if self._native is not None:
-            imgs, labels = self._native.read_batch([key])
-            return imgs[0], int(labels[0])
+        reader = self._native
+        if reader is not None:
+            try:
+                imgs, labels = reader.read_batch([key])
+                return imgs[0], int(labels[0])
+            except IOError as e:
+                self._switch_to_python(reader, e)
+        return self._read_python(key)
+
+    def _read_python(self, key: int) -> Tuple[np.ndarray, int]:
         header, payload = self.reader.read_idx(key)
         return codec.decode(payload), int(header.scalar_label)
 
@@ -118,10 +147,24 @@ class FaceRecordDataset:
                    rows: Optional[np.ndarray] = None):
         """Native threaded batch decode of active items ``positions`` ->
         ((N, S, S, 3) u8, (N,) int32 labels); None on the Python path.
-        ``out`` receives the images, item i at row ``rows[i]`` where given."""
-        if self._native is None:
+        ``out`` receives the images, item i at row ``rows[i]`` where given.
+        A batch that fails natively switches the split to the Python path
+        and is decoded there, in the same layout."""
+        reader = self._native
+        if reader is None:
             return None
-        return self._native.read_batch(self.imgidx[np.asarray(positions)], out, rows)
+        keys = self.imgidx[np.asarray(positions)]
+        try:
+            return reader.read_batch(keys, out, rows)
+        except IOError as e:
+            self._switch_to_python(reader, e)
+        items = [self._read_python(int(k)) for k in keys]
+        imgs = np.stack([img for img, _ in items])
+        if out is None:
+            out = imgs
+        else:
+            out[np.arange(len(keys)) if rows is None else rows] = imgs
+        return out, np.array([label for _, label in items], dtype=np.int32)
 
     def all_labels(self) -> np.ndarray:
         """Labels of the active subset, from header-only reads of the full
@@ -144,7 +187,7 @@ class FaceRecordDataset:
         view.meta = self.meta
         view.imgidx = np.asarray(imgidx)
         view._labels = self._labels
-        view._native = self._native
+        view._plane = self._plane
         return view
 
 
@@ -199,11 +242,14 @@ class CombinedDataset:
     def read_batch(self, positions: np.ndarray, out: Optional[np.ndarray] = None):
         """Each part's items through its native reader, straight into their
         rows of one batch, public labels shifted (JAX datasets.py:189-215);
-        None unless both parts are native."""
-        if not self.native:
+        None unless both parts are native.  A part that fails natively, or
+        that another view of its split switched to the Python path since
+        the check, decodes its rows on the Python path and stays there."""
+        s = self.image_size
+        if s is None:
             return None
         positions = np.asarray(positions)
-        n, s = len(positions), self.image_size
+        n = len(positions)
         if out is None:
             out = np.empty((n, s, s, 3), dtype=np.uint8)
         labels = np.empty(n, dtype=np.int32)
@@ -211,8 +257,14 @@ class CombinedDataset:
         for sel, ds, off, shift in ((is_local, self.local, 0, 0),
                                     (~is_local, self.public, self.local_len, self.shift)):
             rows = np.flatnonzero(sel)
-            if len(rows):
-                labels[rows] = ds.read_batch(positions[rows] - off, out, rows)[1] + shift
+            if not len(rows):
+                continue
+            got = ds.read_batch(positions[rows] - off, out, rows)
+            if got is None:
+                items = [ds.read(int(p)) for p in positions[rows] - off]
+                out[rows] = np.stack([img for img, _ in items])
+                got = out, np.array([label for _, label in items], dtype=np.int32)
+            labels[rows] = got[1] + shift
         return out, labels
 
     def device_batch(self, positions: np.ndarray):
@@ -280,11 +332,16 @@ class BatchLoader:
         self.close()
 
     def _native_batch(self, idx: np.ndarray):
+        """The native batch decode, or None where the split went on the
+        Python path since the caller's check (another view switched it)."""
         if not self.pin_memory:
             return self.dataset.read_batch(idx)
         s = self.dataset.image_size
+        if s is None:
+            return None
         imgs = torch.empty((len(idx), s, s, 3), dtype=torch.uint8, pin_memory=True)
-        return imgs, self.dataset.read_batch(idx, imgs.numpy())[1]
+        got = self.dataset.read_batch(idx, imgs.numpy())
+        return None if got is None else (imgs, got[1])
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -299,7 +356,9 @@ class BatchLoader:
         (one generator launch a batch); a native record dataset as host
         numpy from one batch decode, or as a pinned CPU tensor under
         ``pin_memory``; a record dataset on the Python path as host numpy
-        from the decode pool.  ``with_positions`` appends the batch's
+        from the decode pool; the plane is asked a batch, so a split that
+        switches to the Python path mid-epoch goes on there.
+        ``with_positions`` appends the batch's
         dataset positions (int32; pad slots repeat the first position, as
         the images do), which the cached-contrastive step gathers its
         frozen features by.
@@ -308,7 +367,6 @@ class BatchLoader:
         order = self.rng.permutation(n) if self.shuffle else np.arange(n)
         bs = self.batch_size
         synthetic = getattr(self.dataset, "is_device_synthetic", False)
-        native = getattr(self.dataset, "native", False)
         for b in range(len(self)):
             idx = order[b * bs: (b + 1) * bs]
             valid = np.ones(bs, dtype=bool)
@@ -320,8 +378,9 @@ class BatchLoader:
                 imgs, labels = self.dataset.device_batch(idx)
                 yield (imgs, labels, valid) + pos
                 continue
-            if native:
-                yield self._native_batch(idx) + (valid,) + pos
+            got = self._native_batch(idx) if getattr(self.dataset, "native", False) else None
+            if got is not None:
+                yield got + (valid,) + pos
                 continue
             items = list(self.pool.map(self.dataset.read, idx))
             imgs = np.stack([it[0] for it in items])

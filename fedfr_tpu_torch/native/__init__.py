@@ -11,9 +11,11 @@ repository root, one compile at a time across processes (an exclusive file
 lock; the result is moved into place by an atomic rename).  A failed build
 raises with g++'s stderr; there is no fallback.
 
-``counters`` count what the plane did (batches and images decoded, and the
-seconds of each decode stage summed over the threads), so that a run can
-show which plane read its data; ``zero_counters`` sets them to 0.
+``counters`` count what the plane did (batches and images decoded, the
+seconds of each decode stage summed over the threads, and the splits that
+switched to the Python path after a later record failed, ``switches``), so
+that a run can show which plane read its data; ``zero_counters`` sets them
+to 0.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ LIBS = ["-lpthread"]
 REASON_BYTES = 512
 
 counters: Dict[str, float] = {"batches": 0, "images": 0, "entropy_s": 0.0,
-                              "reconstruct_s": 0.0}
+                              "reconstruct_s": 0.0, "switches": 0}
 build_seconds: Optional[float] = None
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -45,7 +47,13 @@ _lib: Optional[ctypes.CDLL] = None
 
 def zero_counters() -> None:
     with _lock:
-        counters.update(batches=0, images=0, entropy_s=0.0, reconstruct_s=0.0)
+        counters.update(batches=0, images=0, entropy_s=0.0, reconstruct_s=0.0, switches=0)
+
+
+def count_switch() -> None:
+    """Count one split that went on on the Python path."""
+    with _lock:
+        counters["switches"] += 1
 
 
 def build_command(out: Path) -> list:

@@ -315,8 +315,12 @@ def test_chip_smoke_pretrain_mesh_phase_rehearsed_on_cpu(tmp_path):
     """The smoke's phase 13 at toy size on two shards of the CPU: the
     sharded losses against one device at 6,000 and 6,001 classes (13a), the pretraining CLI over the
     mesh (a full epoch, a sampled one, the replicas and artefact checks)
-    and against one device in bf16 and fp32 (13b), the step figures (13c);
-    no launch is counted here."""
+    and against one device in bf16 and fp32 (13b), the step figures (13c),
+    BN over the whole batch with iresnet18 in place of iresnet100 (13d: the
+    BN statistics and parameters after a step against one device in bf16
+    and fp32, the losses and BN statistics of two steps in float64, and the
+    controls with BN over each shard beyond both bounds); no launch is
+    counted here."""
     devices = chip_smoke.mesh_devices("cpu")
     spec = ("synth:image_size=16,imgs_min=2,imgs_max=2,public_ids=21,public_imgs=48,"
             "veri_ids=4,veri_imgs=2")
@@ -326,7 +330,7 @@ def test_chip_smoke_pretrain_mesh_phase_rehearsed_on_cpu(tmp_path):
     argv = chip_smoke.with_flag(argv, "--log_every", "2") + ["--num_workers", "2"]
     launches = chip_smoke.phase_pretrain_mesh(
         str(tmp_path), devices, argv, short_spec=spec.replace("public_imgs=48", "public_imgs=24"),
-        iters=2)
+        iters=2, bn_network="iresnet18")
     assert launches == NO_LAUNCHES
     assert os.path.exists(tmp_path / "pre_sampled" / "fc.pth")
     assert torch.load(tmp_path / "pre" / "fc.pth").shape == (21, 16)

@@ -8,9 +8,10 @@ off):
   681``): all clients in one group, lockstep 2 over 3 clients (a padded
   group), the cached MOON step, the plain objective, the adaptive-epoch
   schedule and the oversized-lockstep clamp with its single warning; the
-  global state, the global FC, every client's FC rows and BCE weights at
-  rtol = atol = 1e-6 and the losses at rel 1e-5, JAX's own bounds
-  (``test_federated.py:234-245``);
+  losses at rel 1e-5, JAX's own bound (``test_federated.py:234-245``), and
+  the global state, the global FC, every client's FC rows and BCE weights
+  at rtol = atol = ``FP32_TOL`` (see there); one step of each in float64
+  at 1e-10;
 * the same rounds, and one where a client has more images than the others
   (its peers wrap around their loaders), against the JAX package's
   ``Server.train_round_parallel`` on a one-device mesh, with the JAX
@@ -130,6 +131,20 @@ def _port_server(root, fed, **kw):
     return Server(cfg, AllClientData(cfg, include_public=cfg.fed.add_pretrained_data))
 
 
+# The stacked round runs each client's objective under ``torch.func.vmap``:
+# the BCE linear becomes a batched matmul where the sequential step runs one
+# ``mm``, and the two add their products in other orders.  In float64 one
+# step of each agrees within 1e-14
+# (``test_lockstep_step_matches_sequential_float64`` holds them at 1e-10),
+# so the fp32 gap between the rounds is rounding.  Its worst over the cases
+# below is FP32_GAP: 2.15e-6 in an FC row of the plain objective, 1.5e-6 to
+# 1.7e-6 in one BCE weight element (~0.4) of the others.  JAX holds its own
+# rounds at 1e-6; the port's are held at FP32_TOL_FACTOR x FP32_GAP.
+FP32_GAP = 2.2e-6
+FP32_TOL_FACTOR = 3.0
+FP32_TOL = FP32_TOL_FACTOR * FP32_GAP
+
+
 def _assert_rounds_equal(seq, par, atol=1e-6):
     """JAX's bounds between its sequential and its parallel round."""
     want = seq.global_net.state_dict()
@@ -166,7 +181,7 @@ def _both_rounds(root, fed, lockstep, **kw):
 def test_lockstep_round_matches_sequential(root, fed, lockstep, caplog):
     caplog.set_level(logging.INFO, logger="fedfr_tpu_torch.server")
     seq, par = _both_rounds(root, fed, lockstep)
-    _assert_rounds_equal(seq, par)
+    _assert_rounds_equal(seq, par, atol=FP32_TOL)
     groups = [r.getMessage() for r in caplog.records
               if r.getMessage().startswith("parallel group")]
     if fed.get("add_pretrained_data", True):
@@ -198,15 +213,15 @@ def test_oversized_lockstep_clamps_once(root, caplog):
     the sequential one."""
     caplog.set_level(logging.DEBUG, logger="fedfr_tpu_torch.server")
     seq, par = _both_rounds(root, {}, 10 * CLIENTS)
-    _assert_rounds_equal(seq, par)
+    _assert_rounds_equal(seq, par, atol=FP32_TOL)
     par.current_client_list = par.sample_clients()
     assert par._lockstep_group_size() == CLIENTS
     clamps = [r for r in caplog.records if "oversized" in r.getMessage()]
     assert [r.levelno for r in clamps] == [logging.WARNING, logging.DEBUG]
 
 
-def _iresnet_members(fed):
-    """Two members of a lockstep group, iresnet18 at 16x16 (fp32), with
+def _members(fed, network="iresnet18"):
+    """Two members of a lockstep group, ``network`` at 16x16 (fp32), with
     ``fed``'s dropout and freeze_bn: one global model and each member's FC
     rows, BCE weights, last-round model, batch, flips and dropout seed."""
     from fedfr_tpu_torch.models import BCEModule
@@ -216,10 +231,10 @@ def _iresnet_members(fed):
     kw = dict(image_size=IMG, bf16=False, dropout=fed.get("dropout", 0.0),
               freeze_bn=fed.get("freeze_bn", False))
     return {
-        "work": build_backbone("iresnet18", E, **kw),
-        "global": build_backbone("iresnet18", E, **kw).eval().requires_grad_(False),
-        "last": build_backbone("iresnet18", E, **kw).eval().requires_grad_(False),
-        "lasts": [build_backbone("iresnet18", E, **kw).state_dict() for _ in range(K)],
+        "work": build_backbone(network, E, **kw),
+        "global": build_backbone(network, E, **kw).eval().requires_grad_(False),
+        "last": build_backbone(network, E, **kw).eval().requires_grad_(False),
+        "lasts": [build_backbone(network, E, **kw).state_dict() for _ in range(K)],
         "bce": BCEModule(E, IDS), "bces": [BCEModule(E, IDS).state_dict() for _ in range(K)],
         "fcs": [torch.randn(IDS + PUB_IDS, E) for _ in range(K)],
         "imgs": torch.randint(0, 256, (K, B, IMG, IMG, 3), dtype=torch.uint8),
@@ -235,7 +250,7 @@ OBJECTIVE = dict(num_local=IDS, num_clients=CLIENTS)
 
 def _sequential_steps(mb):
     """Each member's sequential branch step from the global model:
-    [(state_dict, metrics)]."""
+    [(state_dict with ``fc`` and ``bce.*``, metrics)]."""
     from fedfr_tpu_torch.federated.trainer import init_client_state, make_branch_train_step
 
     step, out = make_branch_train_step(**OBJECTIVE), []
@@ -246,13 +261,15 @@ def _sequential_steps(mb):
         state = init_client_state(mb["work"], mb["fcs"][i], mb["bce"], 0.01)
         _, m = step(state, mb["global"], mb["last"], mb["imgs"][i], mb["labels"][i],
                     mb["valid"][i], 0.01, mb["flips"][i], dropout_gen=mb["gen"](i))
-        out.append(({k: v.clone() for k, v in mb["work"].state_dict().items()}, m))
+        sd = dict(mb["work"].state_dict(), fc=state.fc.detach(),
+                  **{f"bce.{k}": v for k, v in mb["bce"].state_dict().items()})
+        out.append(({k: v.clone() for k, v in sd.items()}, m))
     return out
 
 
 def _lockstep_step(mb, remat=False):
     """The members' K=2 lockstep step (``remat`` on the stacked blocks):
-    (stacked state_dict, metrics)."""
+    (stacked state_dict with ``fc`` and ``bce.*``, metrics)."""
     from fedfr_tpu_torch.models.iresnet import draw_dropout_keep
     from fedfr_tpu_torch.parallel.client_parallel import (init_group_state,
                                                           make_parallel_branch_step)
@@ -267,13 +284,14 @@ def _lockstep_step(mb, remat=False):
     last.load_state_dict(stack_trees(mb["lasts"]))
     state = init_group_state(net, torch.stack(mb["fcs"]), stack_trees(mb["bces"]), 0.01)
     keep = None
-    if work.dropout:
+    if getattr(work, "dropout", 0.0):
         keep = torch.cat([draw_dropout_keep((8, work.fc.in_features), work.dropout,
                                             mb["gen"](i), "cpu") for i in range(2)])
     _, m = make_parallel_branch_step(work, mb["bce"], **OBJECTIVE)(
         state, mb["global"], last, mb["imgs"], mb["labels"], mb["valid"], 0.01,
         mb["flips"], dropout_keep=keep)
-    return net.state_dict(), m
+    return dict(net.state_dict(), fc=state.fc.detach(),
+                **{f"bce.{k}": v.detach() for k, v in state.bce.items()}), m
 
 
 @pytest.mark.parametrize("fed", [{"dropout": 0.3}, {"dropout": 0.3, "freeze_bn": True}],
@@ -287,7 +305,7 @@ def test_lockstep_iresnet_step_matches_sequential(fed):
     kernel, and a pre-activation within that rounding of 0 takes the other
     PReLU slope, so the updated weights are held at 1e-5 where BN is
     frozen."""
-    mb = _iresnet_members(fed)
+    mb = _members(fed)
     seq = _sequential_steps(mb)
     stacked, m = _lockstep_step(mb)
     for i, (sd, mi) in enumerate(seq):
@@ -305,6 +323,46 @@ def test_lockstep_iresnet_step_matches_sequential(fed):
                    for k, v in start.state_dict().items() if "running" in k)
 
 
+def _double(mb):
+    """``mb``'s modules, FC rows, BCE weights and last-round models in
+    float64."""
+    def cast(sd):
+        return {k: v.double() if v.is_floating_point() else v for k, v in sd.items()}
+
+    for k in ("work", "global", "last", "bce"):
+        mb[k].double()
+    mb["lasts"], mb["bces"] = [cast(sd) for sd in mb["lasts"]], [cast(sd) for sd in mb["bces"]]
+    mb["fcs"] = [fc.double() for fc in mb["fcs"]]
+
+
+@pytest.mark.parametrize("network,fed", [
+    ("toy", {}), ("iresnet18", {}), ("iresnet18", {"dropout": 0.3}),
+    ("iresnet18", {"freeze_bn": True}),
+], ids=["toy", "iresnet18", "iresnet18_dropout", "iresnet18_freeze_bn"])
+def test_lockstep_step_matches_sequential_float64(network, fed, monkeypatch):
+    """One lockstep step against the members' sequential steps with every
+    float in float64 (the modules, FC rows and BCE weights cast to double,
+    and ``Tensor.float``, the port's casts at the input, in the heads and in
+    the losses, made ``Tensor.double``): every updated tensor, the FC rows
+    and BCE weights included, and every loss term agree at 1e-10.  So what
+    the fp32 rounds differ by (``FP32_GAP``) is rounding."""
+    mb = _members(fed, network)
+    _double(mb)
+    monkeypatch.setattr(torch.Tensor, "float", torch.Tensor.double)
+    seq = _sequential_steps(mb)
+    stacked, m = _lockstep_step(mb)
+    assert stacked["fc"].dtype == stacked["bce.weight"].dtype == torch.float64
+    for i, (sd, mi) in enumerate(seq):
+        for name in mi._fields:
+            assert getattr(m, name).dtype == torch.float64
+            assert float(getattr(m, name)[i]) == pytest.approx(
+                float(getattr(mi, name)), rel=1e-10, abs=1e-10), name
+        assert stacked.keys() == sd.keys()
+        for k, v in sd.items():
+            np.testing.assert_allclose(stacked[k][i].double().numpy(), v.double().numpy(),
+                                       rtol=1e-10, atol=1e-10, err_msg=k)
+
+
 def test_lockstep_remat_step_equals_lockstep_step(root):
     """``--remat`` in the lockstep step changes nothing: iresnet18 with BN
     in train mode, every updated tensor (the BN running statistics and
@@ -312,7 +370,7 @@ def test_lockstep_remat_step_equals_lockstep_step(root):
     recompute would move) and every loss term equal to the step without
     it; and the server's stacked work net under ``--remat`` checkpoints
     every block."""
-    mb = _iresnet_members({})
+    mb = _members({})
     (plain, mp), (remat, mr) = _lockstep_step(mb), _lockstep_step(mb, remat=True)
     for k, v in plain.items():
         assert torch.equal(remat[k], v), k

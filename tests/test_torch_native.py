@@ -17,7 +17,9 @@
 * the datasets on it: the native ``BatchLoader`` epoch against the Python
   path's and the JAX package's, ``CombinedDataset.read_batch``, a
   ``subset`` view, a PNG split on the Python path with its log line, a
-  decode error that raises, a toy round of the training CLI over a JPEG
+  split whose later record the reader rejects going on with cv2 (one
+  warning, one counted switch), a record neither plane decodes that
+  raises, a toy round of the training CLI over a JPEG
   root with the plane on and off (``test_torch_native_card.py`` holds the
   card's half: a native batch in pinned memory).
 """
@@ -371,19 +373,112 @@ def test_png_split_opens_on_the_python_path_with_its_log_line(tmp_path, caplog):
 
 
 def test_a_native_split_raises_on_a_later_bad_record(tmp_path):
-    """The plane is chosen once: a record that the reader rejects after the
-    split opened natively raises, with no fallback to the Python path."""
+    """A later record that neither plane decodes still raises, as in the
+    JAX package: the split switches to the Python path (one count), and
+    cv2's decode of the batch raises there."""
     rng = np.random.default_rng(11)
     good = [_cv2(_image(rng, 16), 90) for _ in range(5)]
     _write(str(tmp_path), good + [good[0][:100]])
     ds = FaceRecordDataset(str(tmp_path))
     assert ds.native
+    native.zero_counters()
     with BatchLoader(ds, 3, shuffle=False) as loader:
         batches = loader.epoch()
         next(batches)
-        with pytest.raises(IOError, match="key 6: cannot decode: .*past the end"):
+        with pytest.raises(ValueError, match="cv2 failed to decode"):
             next(batches)
-    assert ds.native
+    assert not ds.native and native.counters["switches"] == 1
+
+
+def _cut_entropy(payload):
+    """``payload`` with its entropy-coded data cut to half, then its EOI:
+    libjpeg decodes it with a warning, the native reader rejects it."""
+    sos = payload.index(b"\xff\xda")
+    return payload[:sos + (len(payload) - sos) // 2] + b"\xff\xd9"
+
+
+@pytest.mark.parametrize("combined", [False, True], ids=["split", "combined"])
+@pytest.mark.parametrize("bad", ["cmyk", "entropy_cut_short"])
+def test_a_later_record_the_reader_rejects_is_read_by_cv2(tmp_path, caplog, monkeypatch,
+                                                          bad, combined):
+    """A split whose first records decode natively and whose 6th the native
+    reader rejects (a CMYK JPEG; entropy data cut short), read as the JAX
+    package reads it (datasets.py:62-72): two epochs give cv2's bytes for
+    every record, the batch that failed included, the split (and its
+    subset views) stays on the Python path, with one warning naming the
+    key and the reason and one switch counted.  ``combined``: the split is
+    the public part of a ``CombinedDataset``, whose native batch decodes
+    the failing part's rows again on the Python path."""
+    monkeypatch.setattr(logging.getLogger("fedfr_tpu_torch"), "propagate", True)
+    rng = np.random.default_rng(12)
+    good = [_cv2(_image(rng, 16), 90) for _ in range(8)]
+    payload = _cmyk_payload() if bad == "cmyk" else _cut_entropy(good[5])
+    d = str(tmp_path / "public")
+    _write(d, good[:5] + [payload] + good[5:], [i // 3 for i in range(9)])
+    ds, py = FaceRecordDataset(d), FaceRecordDataset(d, use_native=False)
+    view = ds.subset(np.arange(1, 10))
+    assert ds.native and view.native and not py.native
+    if combined:
+        _write(str(tmp_path / "local"), good[:4], [0, 0, 1, 1])
+        ds = CombinedDataset(FaceRecordDataset(str(tmp_path / "local")), ds)
+        py = CombinedDataset(FaceRecordDataset(str(tmp_path / "local"), use_native=False), py)
+        assert ds.native
+    native.zero_counters()
+    epochs = []
+    with caplog.at_level(logging.WARNING, logger="fedfr_tpu_torch.data"):
+        for dataset in (ds, py):
+            with BatchLoader(dataset, 4, shuffle=False, num_workers=2) as loader:
+                epochs.append([b for e in range(2) for b in loader.epoch()])
+    assert len(epochs[0]) == len(epochs[1]) == 2 * (4 if combined else 3)
+    for a, b in zip(*epochs):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    warned = [r for r in caplog.records if r.levelno == logging.WARNING]
+    assert len(warned) == 1 and native.counters["switches"] == 1
+    assert "key 6: cannot decode" in warned[0].getMessage()
+    assert ("4 components" if bad == "cmyk" else "ends early") in warned[0].getMessage()
+    assert "Python path" in warned[0].getMessage()
+    assert not view.native and view.read_batch([0]) is None
+
+
+@pytest.mark.parametrize("reader", ["loader", "combined"])
+def test_a_split_switched_since_the_check_is_read_on_the_python_path(tmp_path, reader):
+    """A split that another view (a prefetch thread's, say) switches to the
+    Python path between a batch's check of the plane and its read: the
+    ``BatchLoader``'s batch, or a ``CombinedDataset`` part's rows, decoded
+    by cv2, the labels as on the native path."""
+    rng = np.random.default_rng(13)
+    good = [_cv2(_image(rng, 16), 90) for _ in range(6)]
+    _write(str(tmp_path / "local"), good[:4], [0, 0, 1, 1])
+    _write(str(tmp_path / "public"), good, [0, 0, 1, 1, 2, 2])
+    parts = [FaceRecordDataset(str(tmp_path / d)) for d in ("local", "public")]
+    py = [FaceRecordDataset(str(tmp_path / d), use_native=False) for d in ("local", "public")]
+    read_batch = parts[1].read_batch
+
+    def switched(*a, **kw):
+        parts[1]._plane[0] = None  # what another view's switch leaves
+        return read_batch(*a, **kw)
+
+    parts[1].read_batch = switched
+    if reader == "loader":
+        assert parts[1].native
+        with BatchLoader(parts[1], 4, shuffle=False, num_workers=2) as loader:
+            got = [b[:2] for b in loader.epoch()]
+        with BatchLoader(py[1], 4, shuffle=False, num_workers=2) as loader:
+            want = [b[:2] for b in loader.epoch()]
+        for (gi, gl), (wi, wl) in zip(got, want, strict=True):
+            np.testing.assert_array_equal(gi, wi)
+            assert gl.tolist() == wl.tolist()
+    else:
+        ds, py_ds = CombinedDataset(*parts), CombinedDataset(*py)
+        assert ds.native
+        positions = np.array([5, 0, 9, 3, 4])
+        imgs, labels = ds.read_batch(positions)
+        want = [py_ds.read(int(p)) for p in positions]
+        np.testing.assert_array_equal(imgs, np.stack([img for img, _ in want]))
+        assert labels.tolist() == [label for _, label in want]
+        assert parts[0].native
+    assert not parts[1].native
 
 
 @pytest.fixture(scope="module")
