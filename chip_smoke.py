@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phase 12g  # phases 1, 2 and 12g alone
     python3 chip_smoke.py --phase 13   # phases 1, 2 and 13, on every card
     python3 chip_smoke.py --phase 14   # phases 1, 2 and 14 alone
+    python3 chip_smoke.py --phase 15   # phases 1, 2 and 15 alone
 
 Phases, in order (any failure raises and the script exits non-zero):
 
@@ -147,7 +148,7 @@ Phases, in order (any failure raises and the script exits non-zero):
    final global export twice (bitwise-equal scores), the host engine on
    the same image features through --load_feature (within 1e-5 of the
    device's scores), and ``ijbc_conti --job 1:1`` over phase 4's
-   ``backbone_0.pth`` and ``backbone_1.pth`` (the cache reused).  Checks
+   ``backbone_1.pth`` (the cache reused).  Checks
    the pair and template counts, the 6-entry 1:1 tables, top1/top5/top10
    and finite values; prints each stage's seconds (root write, embed with
    its images/s, aggregation, the 15.66 M pairs' scoring, 1:n) and the
@@ -276,10 +277,35 @@ Phases, in order (any failure raises and the script exits non-zero):
         path (``use_native=False``): images/s of both and the largest
         feature difference, which must be 0 (the bytes are the same).
 
+15. convergence — the port's convergence chain
+   (``fedfr_tpu_torch.convergence.run_chain``: a synthetic identity source,
+   ``data/split.py``'s splits, pretraining, the training CLI with every
+   FedFR flag, ``local_all --backbone multi --task 1:1``) at DESIGN.md's
+   flagship scale: sphere64, E=512, 112x112, 8 clients x 4 IDs, 16 public
+   IDs, 10 images an ID, 4 of them veri, pretraining 4 epochs at lr 0.001,
+   6 rounds x 4 local epochs at lr 0.001; launch counts set to 0 before
+   each run and read after, and checked by stage (mining once a client a
+   round; the ROC once a candidate a round plus the epoch -1 baselines,
+   once a client in local_all):
+   15a  every loss and XNorm finite, no collapsed-feature warning, and the
+        repository's convergence test's criteria: the last round's .bin
+        accuracy at least round 0's, and a gain over 0.02 or a last-round
+        mean local TPR@1e-1 over the baseline's by more than 2.0; the
+        per-round table (loss, accuracy, XNorm, mean TPR@1e-1 and @1e-3)
+        and local_all's mean TPR, beside DESIGN.md's TPU v5e table (not
+        gated);
+   15b  the planted control: the same chain from 15a's pretrained root
+        (the chain's pretraining is seeded) at lr 0 for 2 rounds of 1
+        local epoch, which must fail the learning criterion;
+   15c  15a at pretrain lr 0.01 for 1 round: the pretrained median feature
+        norm, round 0's XNorm and loss and whether the collapse warning
+        fired, beside DESIGN.md's TPU record (not gated).
+
 The line before the last is a JSON object with every hand-written kernel
-(its ``launches`` summed over phases 4-14, and by phase, 7a-7d apart, 11a-11c
-and 12c-12d together); the last line is the device record.  ``--phase 12``,
-``--phase 13`` and ``--phase 14`` print no kernel line.  Widths are the reference's (sphere64 and iresnet100, E=512,
+(its ``launches`` summed over phases 4-15, and by phase, 7a-7d apart, 11a-11c,
+12c-12d and 15a-15c together); the last line is the device record.
+``--phase 12``, ``--phase 13``, ``--phase 14`` and ``--phase 15`` print no
+kernel line.  Widths are the reference's (sphere64 and iresnet100, E=512,
 112x112, batch 256); counts are cut:
   * (phases 4-7; phase 8 runs the reference's data, cut as listed there)
     2 clients x 100 IDs x 8 train images (reference: 40 clients x 100 IDs);
@@ -301,7 +327,8 @@ and 12c-12d together); the last line is the device record.  ``--phase 12``,
     pairs and 1:n lists at the protocol's counts;
   * (phase 11) 3 clients x 100 IDs x 8 images; 1 local epoch, 1 round
     for each of 11a-11c (12c runs two lockstep rounds);
-  * (phase 12) devices + 1 clients x 100 IDs x 8 images, a 128-image
+  * (phase 12) devices + 1 clients x 50 IDs x 8 images (100 under
+    ``--phase 12``), a 128-image
     public set (64 IDs x 2), 4 veri images an ID; 1 local epoch then 4, 2
     rounds for 12c, 1 round each for 12d; 12b 61,440 of 420,671 public
     images;
@@ -310,7 +337,12 @@ and 12c-12d together); the last line is the device record.  ``--phase 12``,
     and 13d's 2 (reference: 16 epochs of 420,671 images);
   * (phase 14) a JPEG public set of 32,768 images (reference: 420,671),
     the mined set capped at 6,500 images as in phase 8, 1 local epoch, 1
-    round.
+    round;
+  * (phase 15) DESIGN.md's flagship chain: 8 clients x 4 IDs x 6 train
+    images, 16 public IDs x 10, 128 veri images, a 64-pair .bin, 6 rounds
+    (reference: 40 clients x 100 IDs, 20 rounds); no per-round exports
+    (``--round_ckpt_every 0 --client_ckpt_every 0``: the final round's) and
+    one pretraining save, the last epoch's.
 """
 
 from __future__ import annotations
@@ -338,8 +370,10 @@ import fedfr_tpu_torch.ops.max_sim as max_sim_mod
 import fedfr_tpu_torch.ops.roc_hist as roc_hist_mod
 import fedfr_tpu_torch.ops.roc_histogram as roc_histogram_mod
 import fedfr_tpu_torch.ops.synth_gen as synth_gen_mod
+from fedfr_tpu_torch import convergence as conv
 from fedfr_tpu_torch import ijbc_all, ijbc_conti
 from fedfr_tpu_torch import local_all as local_all_cli
+from fedfr_tpu_torch.config import FedFRConfig
 from fedfr_tpu_torch import pretrain as pretrain_cli
 from fedfr_tpu_torch import train as train_cli
 from fedfr_tpu_torch.data import BatchLoader, FaceRecordDataset, codec, synthetic, write_split
@@ -3741,6 +3775,122 @@ def phase_native(root: str, val_dir: str, n_images: int = NATIVE_IMAGES,
     return launches
 
 
+# phase 15: the convergence chain at the flagship scale of DESIGN.md:565-570
+CONVERGENCE_ARGV = ["--network", "sphnet", "--embed", "512", "--image_size", "112",
+                    "--num_clients", "8", "--num_ids", "32", "--imgs_per_id", "10",
+                    "--pretrain_epochs", "4", "--pretrain_lr", "0.001", "--rounds", "6",
+                    "--local_epoch", "4", "--lr", "0.001"]
+# no per-round exports: the final round's backbone and every client's at the
+# end, which local_all reads, and the pretraining's last epoch alone (the
+# harness keeps both CLIs' per-round and per-epoch cadence)
+CONVERGENCE_CUTS = ["--round_ckpt_every", "0", "--client_ckpt_every", "0"]
+CONVERGENCE_PRETRAIN_CUTS = ["--save_every", "1000"]
+# DESIGN.md:572-579 and 591-595: the JAX chain on one TPU v5e, not the
+# port's; printed beside the port's rows, never gated
+TPU_V5E_ROUNDS = [(0, 21.42, 0.767, 38.6), (1, 17.43, 0.795, 8.9), (2, 16.36, 0.831, 6.9),
+                  (3, 16.09, 0.845, 5.7), (4, 15.80, 0.924, 4.4), (5, 15.98, 0.924, 4.4)]
+TPU_V5E_LOCAL_TPR = {"at_1e-1": (75.7, 79.7), "at_1e-3": (15.2, 22.8),
+                     "local_all_mean_tpr": [7.83, 8.01, 9.78, 23.26, 45.80, 79.69]}
+# DESIGN.md:614-620: the same chain at pretrain lr 0.01 on the TPU
+TPU_V5E_NEGATIVE = {"xnorm_entering_round_0": 1.2e18, "cos_loss_pinned_at": 14.944}
+
+
+def convergence_run(part: str, argv: list, pub_ids: int, n_pairs: int,
+                    train_extra: list, pretrained_root: str = None) -> tuple:
+    """One chain (``fedfr_tpu_torch.convergence.run_chain``) with the
+    launch counts set to 0 just before and read just after; logs its
+    summary and checks that every loss and XNorm is finite and, on the
+    card, the launches of each stage: mining once a client a round, the ROC
+    once a candidate a round plus the epoch -1 baselines, and once a client
+    in ``local_all``.  Returns (args, summary, launches)."""
+    args = conv.build_parser().parse_args(argv)
+    zero_launches()
+    summary = conv.run_chain(args, pub_ids=pub_ids, n_pairs=n_pairs,
+                             pretrain_extra=CONVERGENCE_PRETRAIN_CUTS,
+                             train_extra=CONVERGENCE_CUTS + list(train_extra),
+                             pretrained_root=pretrained_root)
+    launches = read_launches()
+    log("convergence", part=part, summary=json.dumps(summary))
+    values = summary["avg_loss_per_round"] + summary["xnorm_per_round"]
+    if len(summary["xnorm_per_round"]) != args.rounds or not all(map(math.isfinite, values)):
+        raise AssertionError(f"{part}: losses {summary['avg_loss_per_round']}, XNorm "
+                             f"{summary['xnorm_per_round']} over {args.rounds} rounds")
+    candidates = min(args.num_clients, FedFRConfig().fed.num_local_eval_clients)
+    expected = {"data": {"max_sim": 0, "roc_hist": 0},
+                "train": {"max_sim": args.num_clients * args.rounds,
+                          "roc_hist": candidates * (args.rounds + 1)},
+                "local_all": {"max_sim": 0, "roc_hist": args.num_clients}}
+    if args.pretrain_epochs > 0 and not pretrained_root:
+        expected["pretrain"] = {"max_sim": 0, "roc_hist": 0}
+    log("convergence", part=part, launches=launches,
+        by_stage=json.dumps(summary["launches"]), expected=json.dumps(expected))
+    if args.device == "cuda" and summary["launches"] != expected:
+        raise AssertionError(f"{part}: kernel launches by stage {summary['launches']}, "
+                             f"expected {expected}")
+    return args, summary, launches
+
+
+def phase_convergence(root: str, argv: list = CONVERGENCE_ARGV, device: str = "cuda",
+                      pub_ids: int = conv.PUB_IDS, n_pairs: int = conv.BIN_PAIRS,
+                      train_extra: tuple = ()) -> dict:
+    """Phase 15, the convergence chain (split, pretrain, train with every
+    FedFR flag, local_all) three times: (a) at ``argv``, gated on the
+    repository's convergence criteria, no collapse warning and the kernels'
+    launches; (b) the planted control, the same chain from (a)'s pretrained
+    root at lr 0 for 2 rounds of 1 local epoch, which must fail the
+    learning criterion; (c) (a) at pretrain lr 0.01 for 1 round, the
+    negative result, printed and not gated.  Returns the launches of the
+    three runs summed."""
+    t_phase = time.perf_counter()
+    base = with_flag(with_flag(argv, "--device", device), "--work_dir",
+                     os.path.join(root, "a"))
+    args, a, launches_a = convergence_run("15a", base, pub_ids, n_pairs, list(train_extra))
+    crit = a["criteria"]
+    for r, ((_, acc), loss, xnorm, (tpr1, tpr3)) in enumerate(zip(
+            a["agedb_per_round"], a["avg_loss_per_round"], a["xnorm_per_round"],
+            a["local_tpr_per_round"])):
+        log("convergence", part="15a", round=r, avg_client_loss=loss, bin_acc=acc,
+            xnorm=xnorm, mean_local_tpr_1e_1=tpr1, mean_local_tpr_1e_3=tpr3)
+    log("convergence", part="15a", baseline_tpr_1e_1=a["local_tpr_at_1e-1_baseline_mean"],
+        baseline_tpr_1e_3=a["local_tpr_at_1e-3_baseline_mean"],
+        local_all_mean_tpr=a["local_all_mean_tpr"],
+        pretrained_median_feature_norm=a["pretrained_median_feature_norm"],
+        criteria=json.dumps(crit), stage_seconds=json.dumps(a["stage_seconds"]))
+    for r, loss, acc, xnorm in TPU_V5E_ROUNDS:
+        log("convergence", part="15a", tpu_v5e_jax_round=r, avg_client_loss=loss,
+            bin_acc=acc, xnorm=xnorm, gated=False)
+    log("convergence", part="15a", tpu_v5e_jax_local=json.dumps(TPU_V5E_LOCAL_TPR),
+        gated=False)
+    if a["collapse_warnings"]:
+        raise AssertionError(f"15a: {a['collapse_warnings']} collapsed-feature warnings")
+    if not (crit["not_worse"] and crit["learned"]):
+        raise AssertionError(f"15a: the chain did not learn: {crit}")
+
+    control = with_flag(with_flag(with_flag(with_flag(
+        base, "--lr", "0"), "--rounds", "2"), "--local_epoch", "1"),
+        "--work_dir", os.path.join(root, "b"))
+    # the chain's pretraining is seeded: 15b starts from 15a's root
+    _, b, launches_b = convergence_run("15b", control, pub_ids, n_pairs, list(train_extra),
+                                       pretrained_root=os.path.join(root, "a", "pre"))
+    log("convergence", part="15b", criteria=json.dumps(b["criteria"]))
+    if b["criteria"]["learned"]:
+        raise AssertionError(f"15b: the lr-0 control passed the learning criterion "
+                             f"{b['criteria']}: the gate cannot fail")
+
+    negative = with_flag(with_flag(with_flag(base, "--pretrain_lr", "0.01"),
+                                   "--rounds", "1"), "--work_dir", os.path.join(root, "c"))
+    _, c, launches_c = convergence_run("15c", negative, pub_ids, n_pairs, list(train_extra))
+    log("convergence", part="15c", pretrain_lr=0.01,
+        pretrained_median_feature_norm=c["pretrained_median_feature_norm"],
+        round0_xnorm=c["xnorm_per_round"][0], round0_avg_client_loss=c["avg_loss_per_round"][0],
+        collapse_warning=c["collapse_warnings"] > 0, gated=False,
+        tpu_v5e_jax=json.dumps(TPU_V5E_NEGATIVE))
+    log("convergence", seconds=f"{time.perf_counter() - t_phase:.2f}",
+        runs_s=json.dumps({k: sum(s["stage_seconds"].values())
+                           for k, s in (("15a", a), ("15b", b), ("15c", c))}))
+    return {k: launches_a[k] + launches_b[k] + launches_c[k] for k in launches_a}
+
+
 def main(argv: list) -> None:
     seconds = {}
 
@@ -3751,9 +3901,9 @@ def main(argv: list) -> None:
         return out
 
     if argv not in ([], ["--phase", "12"], ["--phase", "12g"], ["--phase", "13"],
-                    ["--phase", "14"]):
+                    ["--phase", "14"], ["--phase", "15"]):
         raise SystemExit("usage: python3 chip_smoke.py "
-                         "[--phase 12 | --phase 12g | --phase 13 | --phase 14]")
+                         "[--phase 12 | --phase 12g | --phase 13 | --phase 14 | --phase 15]")
     smi = timed("1_device", phase_device)
     timed("2_build", phase_build)
     if argv == ["--phase", "12g"]:
@@ -3765,9 +3915,11 @@ def main(argv: list) -> None:
             "count": torch.cuda.device_count()}}), flush=True)
         return
     if argv:
-        # phase 12 or 13 alone, on every GPU of the machine; phase 14 alone
+        # phase 12 or 13 alone, on every GPU of the machine; 14 or 15 alone
         with tempfile.TemporaryDirectory(prefix="fedfr_smoke_") as root:
-            if argv[1] == "14":
+            if argv[1] == "15":
+                timed("15_convergence", phase_convergence, os.path.join(root, "convergence"))
+            elif argv[1] == "14":
                 write_bin(os.path.join(root, "val", "agedb_30.bin"), n_pairs=1200,
                           size=112, seed=1)
                 timed("14_native", phase_native, os.path.join(root, "native"),
@@ -3815,7 +3967,7 @@ def main(argv: list) -> None:
         by_phase["ijbc"] = timed(
             "10_ijbc", phase_ijbc, os.path.join(root, "ijbc"),
             os.path.join(root, "run_reference", "backbone_0.pth"),
-            os.path.join(root, "run"), [0, 1])
+            os.path.join(root, "run"), [1])
         lock_root = os.path.join(root, "lockstep")
         timed("11_data", write_round_data, lock_root, n_clients=3, ids=100, size=112)
         # 1 local epoch: round 0 at random weights mines every public
@@ -3824,9 +3976,10 @@ def main(argv: list) -> None:
                       local_epochs=1)
         by_phase["lockstep"] = {k: sum(p[k] for p in parts.values())
                                 for k in KERNEL_COUNTERS}
-        # 1 local epoch, then 4: two rounds over two shards of the card
+        # 1 local epoch, then 4: two rounds over two shards of the card, 50
+        # IDs a client (--phase 12 on every card: 100)
         parts = timed("12_mesh", phase_mesh, os.path.join(root, "mesh"), mesh_devices(),
-                      ids=100, local_epochs=1)
+                      ids=50, local_epochs=1)
         by_phase["mesh"] = {k: sum(p[k] for p in parts.values()) for k in KERNEL_COUNTERS}
         # pretraining over two shards of the card
         by_phase["pretrain_mesh"] = timed(
@@ -3835,6 +3988,10 @@ def main(argv: list) -> None:
         # the native reader, and run.sh's round over a JPEG root
         by_phase["native"] = timed("14_native", phase_native, os.path.join(root, "native"),
                                    os.path.join(root, "val"))
+        # the convergence chain at sphere64 / E=512: split, pretrain, 6
+        # rounds, local_all; its control; the pretrain-lr negative result
+        by_phase["convergence"] = timed("15_convergence", phase_convergence,
+                                        os.path.join(root, "convergence"))
     log("smoke", phase_seconds=json.dumps(seconds),
         total_s=round(sum(seconds.values()), 2))
     for record in (mining, roc, synth):

@@ -6,7 +6,7 @@ import torch
 from torch import nn
 
 from .iresnet import IResNet
-from .layers import batch_norm, conv3x3
+from .layers import batch_norm, conv3x3, lecun_normal
 from .sphnet import SphNet
 
 
@@ -15,7 +15,9 @@ class ToyNet(nn.Module):
 
     The JAX ``ToyNet`` has no reference counterpart, so its state_dict keys
     are the port's own: ``conv1.weight``, ``bn1.*``, ``conv2.weight``,
-    ``fc.{weight,bias}``.
+    ``fc.{weight,bias}``.  Its init is flax's default, the JAX net's: every
+    conv and the fc kernel lecun-normal, the fc bias 0, BN scale 1 and bias
+    0, drawn from the global RNG.
     """
 
     def __init__(self, embedding_size: int = 32):
@@ -24,6 +26,9 @@ class ToyNet(nn.Module):
         self.bn1 = batch_norm(16)
         self.conv2 = conv3x3(16, 32, stride=2)
         self.fc = nn.Linear(32, embedding_size)
+        for w in (self.conv1.weight, self.conv2.weight, self.fc.weight):
+            lecun_normal(w)
+        nn.init.zeros_(self.fc.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.bn1(self.conv1(x)))

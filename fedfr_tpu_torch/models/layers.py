@@ -56,9 +56,10 @@ def normal_init(tensor: torch.Tensor, stddev: float,
 
 def lecun_normal(tensor: torch.Tensor,
                  generator: torch.Generator = None) -> torch.Tensor:
-    """flax's default Dense kernel init for a torch ``(out, in)`` weight: a
-    normal truncated at 2 sigma, rescaled to variance 1 / in."""
-    std = math.sqrt(1.0 / tensor.shape[1]) / 0.87962566103423978
+    """flax's default Dense and Conv kernel init for a torch ``(out, in)`` or
+    ``(out, in, kh, kw)`` weight: a normal truncated at 2 sigma, rescaled to
+    variance 1 / fan_in (``in * kh * kw``)."""
+    std = math.sqrt(1.0 / tensor[0].numel()) / 0.87962566103423978
     return nn.init.trunc_normal_(tensor, std=std, a=-2.0 * std, b=2.0 * std,
                                  generator=generator)
 
