@@ -33,6 +33,8 @@ from fedfr_tpu_torch.evalsuite import local_eval as tle
 from fedfr_tpu_torch.evalsuite import verification as tver
 from fedfr_tpu_torch.models import ToyNet
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 REPO = Path(__file__).resolve().parent.parent
 CLIENTS, IDS, IMG = 2, 3, 16
 

@@ -8,8 +8,9 @@
   bytes of ``experiments/convergence_tpu.py::gen_source``;
 * the plain step learns class separation as ``tests/test_convergence.py``'s
   does, from the JAX initial weights (carried by ``interop``) on both
-  packages, with JAX's flip masks: the port's separation gain within
-  ``SEPARATION_TOL`` of the JAX run's;
+  packages, with JAX's flip masks, in fp32, the first ``FP32_EPOCHS``
+  epochs' losses within ``FP32_LOSS_RTOL`` of the JAX run's; in float64
+  the port's separation gain is within ``SEPARATION_TOL`` of the JAX run's;
 * the port's whole chain at ``tests/test_convergence.py``'s sizes and
   arguments (toy, E=32, 24x24, 2 clients x 8 IDs, 4 public IDs, 3 rounds,
   lr 0.02, ``--spreadout --init_fc``, ``HN_threshold -1``) from that
@@ -24,6 +25,7 @@
 """
 
 import argparse
+import contextlib
 import filecmp
 import importlib.util
 import os
@@ -62,11 +64,19 @@ from fedfr_tpu_torch.federated.embed import embed_dataset
 from fedfr_tpu_torch.federated.trainer import init_client_state, make_plain_train_step
 from fedfr_tpu_torch.models import build_backbone
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the separation gains of the two packages after 180 plain steps at lr
-# 0.05 from the same weights and flips, fp32 both: 1.11214 against
-# 1.11215 (measured gap 1e-5)
-SEPARATION_TOL = 1e-3
+# 0.05 from the same weights and flips, float64 both: 0.7694406949822
+# (JAX) against gaps of 8.4e-13, 1.5e-13, 5.5e-13 and 4.6e-13 at 1, 2, 4
+# and 8 torch threads.  In fp32 the gaps were 0.0114, 0.0026, 0.0250 and
+# 1e-5: the order of the CPU's fp32 sums, compounded over the steps.
+SEPARATION_TOL = 1e-9
+# the plain runs' per-epoch losses in fp32 over the first 10 epochs (30
+# steps): at most 3.3e-7 apart, relative, at 1, 2, 3, 4, 6 and 8 torch
+# threads; later the sum order's drift builds up (0.39 to 5.5 by epoch 60)
+FP32_EPOCHS, FP32_LOSS_RTOL = 10, 2e-6
 # pretraining: the logs print 4 decimals (measured: equal), 2 units
 LOSS_TOL = 2e-4
 # log10 of the final median feature norm (measured: 5670.96 against
@@ -195,9 +205,10 @@ def _class_separation(feats, labels):
     return sim[same].mean() - sim[off & ~same].mean()
 
 
-def test_plain_training_learns_separation(tmp_path):
-    """tests/test_convergence.py:27's data, weights, steps and criteria, on
-    both packages from the same weights and flips."""
+def _separation_setup(root):
+    """tests/test_convergence.py:27's data (4 classes of 12 noisy copies of
+    one random 24x24 image, written to ``root``) and initial weights, fp32
+    -> (backbone, variables, FC rows, key)."""
     rng = np.random.default_rng(0)
     n_cls, per, hw = 4, 12, 24
     payloads, labels = [], []
@@ -207,42 +218,44 @@ def test_plain_training_learns_separation(tmp_path):
             img = np.clip(base + rng.integers(-25, 25, (hw, hw, 3)), 0, 255)
             payloads.append(jcodec.encode_raw(img.astype(np.uint8)))
             labels.append(c)
-    root = tmp_path / "ds"
     root.mkdir()
     jwrite_split(str(root / "train.idx"), str(root / "train.rec"), payloads, labels,
                  num_classes=n_cls, id_base=0)
-
     backbone = jax_backbone("toy", 16)
     key = jax.random.PRNGKey(0)
     bvars = jax.device_get(backbone.init(key, jnp.zeros((1, hw, hw, 3)), train=False))
     fc = np.array(0.01 * jax.random.normal(key, (n_cls, 16)))
+    return backbone, bvars, fc, key
 
-    # JAX
+
+def _jax_plain_run(root, backbone, bvars, fc, key):
+    """180 plain steps at lr 0.05 (60 epochs of 3 batches) of the JAX
+    package -> (per-epoch losses, separation before, after, labels)."""
     jds = JDataset(str(root))
     state = jinit_state(bvars, jnp.asarray(fc), None)
     jstep = jplain_step(backbone)
     embed_fn = make_embed_fn(backbone)
     feats0, labs = jembed(embed_fn, bvars, jds, 16)
-    jlosses, n_steps = [], 0
-    jloader = JBatchLoader(jds, 16, shuffle=True, seed=1, drop_last=True)
+    losses, n_steps = [], 0
+    loader = JBatchLoader(jds, 16, shuffle=True, seed=1, drop_last=True)
     for _ in range(60):
-        for imgs, lbl, valid in jloader.epoch():
+        for imgs, lbl, valid in loader.epoch():
             state, loss = jstep(state, jnp.asarray(imgs), jnp.asarray(lbl),
                                 jnp.asarray(valid), 0.05, key, n_steps)
             n_steps += 1
-        jlosses.append(float(loss))
+        losses.append(float(loss))
     feats1, _ = jembed(embed_fn, jax.device_get(state.backbone), jds, 16)
-    jsep = (_class_separation(np.asarray(feats0), labs),
-            _class_separation(np.asarray(feats1), labs))
+    return (losses, _class_separation(np.asarray(feats0), labs),
+            _class_separation(np.asarray(feats1), labs), labs)
 
-    # the port
-    net = build_backbone("toy", 16)
-    net.load_state_dict(interop.backbone_state_dict("toy", bvars))
+
+def _port_plain_run(root, net, fc, key):
+    """The same steps on the port, with the JAX run's flip masks."""
     ds = FaceRecordDataset(str(root))
-    f0, tlabs = embed_dataset(net, ds, 16, device="cpu")
-    tstate = init_client_state(net, torch.from_numpy(fc), None, lr=0.05)
+    f0, labs = embed_dataset(net, ds, 16, device="cpu")
+    tstate = init_client_state(net, fc, None, lr=0.05)
     step = make_plain_train_step()
-    tlosses, n_steps = [], 0
+    losses, n_steps = [], 0
     with BatchLoader(ds, 16, shuffle=True, seed=1, drop_last=True) as loader:
         for _ in range(60):
             for imgs, lbl, valid in loader.epoch():
@@ -251,16 +264,83 @@ def test_plain_training_learns_separation(tmp_path):
                 tstate, loss = step(tstate, torch.from_numpy(imgs), torch.from_numpy(lbl),
                                     torch.from_numpy(valid), 0.05, flip)
                 n_steps += 1
-            tlosses.append(float(loss))
+            losses.append(float(loss))
     f1, _ = embed_dataset(net, ds, 16, device="cpu")
-    np.testing.assert_array_equal(tlabs, labs)
-    tsep = (_class_separation(f0.numpy(), tlabs), _class_separation(f1.numpy(), tlabs))
+    return (losses, _class_separation(f0.numpy(), labs),
+            _class_separation(f1.numpy(), labs), labs)
 
-    for losses, (sep0, sep1) in ((jlosses, jsep), (tlosses, tsep)):
+
+class _Float64Numpy:
+    """``jax.numpy`` with ``float32`` read as ``float64``: the JAX package
+    pins its images, layers and losses to float32 by that name."""
+
+    def __getattr__(self, name):
+        return jnp.float64 if name == "float32" else getattr(jnp, name)
+
+
+@contextlib.contextmanager
+def _float64(monkeypatch):
+    """Both packages' plain steps in float64 inside the block: JAX under
+    ``jax.enable_x64`` with the modules on the toy step's path (images,
+    layers, cosine logits, CE) reading ``jnp.float32`` as float64, and
+    ``conv3x3``'s default dtype with them; the port with float64 as torch's
+    default dtype (the margin's scalars) and ``Tensor.float`` made
+    ``Tensor.double``, as tests/test_torch_lockstep.py's float64 step test
+    does."""
+    from fedfr_tpu.federated import state as jstate
+    from fedfr_tpu.models import heads as jheads
+    from fedfr_tpu.models import layers as jlayers
+    from fedfr_tpu.ops import losses as jlosses
+
+    default = torch.get_default_dtype()
+    with monkeypatch.context() as mp, jax.enable_x64(True):
+        for mod in (jstate, jheads, jlayers, jlosses):
+            mp.setattr(mod, "jnp", _Float64Numpy())
+        mp.setattr(jlayers.conv3x3, "__defaults__", tuple(
+            jnp.float64 if d is jnp.float32 else d for d in jlayers.conv3x3.__defaults__))
+        mp.setattr(torch.Tensor, "float", torch.Tensor.double)
+        torch.set_default_dtype(torch.float64)
+        try:
+            yield
+        finally:
+            torch.set_default_dtype(default)
+
+
+def _plain_runs(root, init, dtype=torch.float32):
+    """Both packages' plain runs from ``_separation_setup``'s weights cast
+    to ``dtype``, with the same flips -> (JAX run, port run), each as
+    ``_jax_plain_run`` returns."""
+    backbone, bvars, fc, key = init
+    net = build_backbone("toy", 16)
+    net.load_state_dict(interop.backbone_state_dict("toy", bvars))
+    fc = torch.from_numpy(fc).to(dtype)
+    bvars = jax.tree_util.tree_map(lambda a: np.asarray(a, fc.numpy().dtype), bvars)
+    return (_jax_plain_run(root, backbone, bvars, fc.numpy(), key),
+            _port_plain_run(root, net.to(dtype), fc, key))
+
+
+def test_plain_training_learns_separation(tmp_path, monkeypatch):
+    """tests/test_convergence.py:27's data, weights, steps and criteria, on
+    both packages from the same weights and flips: in fp32 each package
+    meets the criteria and the first epochs' losses agree; the two
+    packages' separation gains are compared in float64, where the order of
+    the CPU's sums cannot build up over the 180 steps (in fp32 the port's
+    gain moves by up to 0.025 with torch's thread count)."""
+    init = _separation_setup(tmp_path / "ds")
+    jrun, trun = _plain_runs(tmp_path / "ds", init)
+    np.testing.assert_array_equal(trun[3], jrun[3])
+    for losses, sep0, sep1, _ in (jrun, trun):
         assert losses[-1] < losses[0] - 3.0, (losses[0], losses[-1])
         assert sep1 > sep0 + 0.1, (sep0, sep1)
-    assert abs(tsep[0] - jsep[0]) < 1e-5, (tsep, jsep)  # the same start
-    assert abs((tsep[1] - tsep[0]) - (jsep[1] - jsep[0])) < SEPARATION_TOL, (tsep, jsep)
+    assert abs(trun[1] - jrun[1]) < 1e-5, (trun[1:3], jrun[1:3])  # the same start
+    np.testing.assert_allclose(trun[0][:FP32_EPOCHS], jrun[0][:FP32_EPOCHS],
+                               rtol=FP32_LOSS_RTOL)
+
+    with _float64(monkeypatch):
+        jrun, trun = _plain_runs(tmp_path / "ds", init, torch.float64)
+    assert abs(trun[1] - jrun[1]) < 1e-10, (trun[1:3], jrun[1:3])
+    gap = abs((trun[2] - trun[1]) - (jrun[2] - jrun[1]))
+    assert gap < SEPARATION_TOL, (trun[1:3], jrun[1:3])
 
 
 def test_full_cli_chain_improves_metrics(tmp_path):
@@ -402,18 +482,7 @@ def test_pretrain_norms_track_jax(tmp_path, monkeypatch):
     assert j1 > NORM_GROWTH * j0 and t1 > NORM_GROWTH * t0, (j0, j1, t0, t1)
 
 
-@pytest.fixture
-def one_thread():
-    """One intra-op thread: on a worker that shares the CPU with others,
-    sphnet20's many small convs ran the phase over 10x slower on
-    oversubscribed threads (594 s against 47 s on one)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
-def test_chip_smoke_convergence_phase_rehearsed_on_cpu(tmp_path, one_thread):
+def test_chip_smoke_convergence_phase_rehearsed_on_cpu(tmp_path):
     """The smoke's phase 15 (15a gated on the criteria, the lr-0 control
     15b on failing them, 15c printed) at the chain test's sizes on
     sphnet20 at 16x16 (BN-free like sphere64: at lr 0 nothing moves; the

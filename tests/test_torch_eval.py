@@ -64,6 +64,8 @@ from fedfr_tpu_torch.ops import kfold as tkfold
 from fedfr_tpu_torch.ops import roc_hist
 from fedfr_tpu_torch.ops import roc_histogram as troc
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 NUM_BINS = 2001
 
 

@@ -48,6 +48,8 @@ from fedfr_tpu_torch.evalsuite import align as talign  # noqa: E402
 from fedfr_tpu_torch.evalsuite import ijbc  # noqa: E402
 from fedfr_tpu_torch.models import build_backbone  # noqa: E402
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_SUBJECTS = 4
 

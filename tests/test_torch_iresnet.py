@@ -29,6 +29,8 @@ from fedfr_tpu_torch import interop
 from fedfr_tpu_torch.federated import init_client_state, make_branch_train_step
 from fedfr_tpu_torch.models import BCEModule, BottleBlock, IResNet, build_backbone
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 
 @pytest.fixture(autouse=True)
 def _fp32():

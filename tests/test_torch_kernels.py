@@ -14,6 +14,8 @@ import torch
 from fedfr_tpu_torch.data import CombinedDataset, synthetic
 from fedfr_tpu_torch.ops import max_sim, roc_hist, synth_gen
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 
 def _unit_rows(n, e, gen):
     x = torch.randn(n, e, device="cuda", generator=gen)

@@ -39,6 +39,8 @@ from fedfr_tpu.utils.checkpoint import save_native
 from fedfr_tpu_torch import local_1n, local_all
 from fedfr_tpu_torch import train as train_cli
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 CLIENTS, IDS, IMG, EMB, VERI = 2, 3, 16, 16, 6
 N_POS = IDS * VERI * (VERI - 1) // 2   # positive pairs of one client's targets
 TPR_TOL = 100.0 / N_POS + 0.01

@@ -48,6 +48,8 @@ from fedfr_tpu_torch.models import build_backbone
 from fedfr_tpu_torch.parallel.client_parallel import stack_module
 from fedfr_tpu_torch.parallel.fedavg import stack_trees, unstack_tree
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 CLIENTS, IDS, IMG, E, PUB_IDS, PUB_IMGS = 3, 3, 16, 16, 6, 5
 
 

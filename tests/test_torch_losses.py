@@ -21,6 +21,8 @@ from fedfr_tpu_torch.ops import (arcface, bce_loss, cosface, moon_contrastive,
                                  reweight_negatives, softmax_cross_entropy)
 from fedfr_tpu_torch.utils.optim import step_lr
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 
 def _rand_cos(rng, b, c):
     return (rng.random((b, c), dtype=np.float32) * 2 - 1) * 0.99

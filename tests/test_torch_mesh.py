@@ -60,6 +60,8 @@ from fedfr_tpu_torch.parallel import client_parallel as cp
 from fedfr_tpu_torch.parallel import mesh
 from fedfr_tpu_torch.parallel.fedavg import stack_trees, streaming_weighted_average
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 rh = importlib.import_module("fedfr_tpu_torch.ops.roc_histogram")
 
 CLIENTS, IDS, IMG, E, PUB_IDS, PUB_IMGS = 5, 2, 16, 16, 4, 4

@@ -35,6 +35,8 @@ from fedfr_tpu_torch.federated import Client, hard_negative_mask
 from fedfr_tpu_torch.models import BCEModule, ToyNet
 from fedfr_tpu_torch.ops import max_cosine_similarity, max_cosine_similarity_plain
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 
 def _unit(rng, n, e):
     x = rng.standard_normal((n, e)).astype(np.float32)

@@ -18,6 +18,8 @@ from fedfr_tpu.utils import torch_interop as ti
 from fedfr_tpu_torch import interop
 from fedfr_tpu_torch.models import BCEModule, IResNet, SphNet, ToyNet, build_backbone
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 
 @pytest.fixture(autouse=True)
 def _fp32():

@@ -55,6 +55,8 @@ from fedfr_tpu_torch.data.datasets import BatchLoader, CombinedDataset, FaceReco
 from fedfr_tpu_torch.data.recordio import (IndexedRecordReader, IndexedRecordWriter,
                                            IRHeader, pack)
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 HAVE_JAX_NATIVE = jax_load_library() is not None
 SAMPLING = {"420": 0x221111, "422": 0x211111, "444": 0x111111, "440": 0x121111}
 

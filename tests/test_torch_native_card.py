@@ -12,6 +12,8 @@ from fedfr_tpu_torch.data import codec, write_split
 from fedfr_tpu_torch.data.datasets import BatchLoader, FaceRecordDataset
 from fedfr_tpu_torch.data.pipeline import to_device_batch
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 
 @pytest.mark.cuda
 def test_native_batch_lands_in_pinned_memory_with_no_second_copy(tmp_path, monkeypatch):

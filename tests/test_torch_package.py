@@ -11,6 +11,8 @@ from pathlib import Path
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "fedfr_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "fedfr_tpu")
@@ -196,3 +198,13 @@ def test_client_parallel_imports_no_jax_and_no_fedfr_tpu():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "fedfr_tpu_torch.parallel.client_parallel" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_xdist_worker_runs_torch_on_its_share_of_the_cores():
+    """``tests/torch_threads.py``: under pytest-xdist each worker's torch
+    runs ``cores // workers`` intra-op threads, at least one."""
+    workers = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+    if not workers:
+        pytest.skip("not under pytest-xdist: torch keeps its default")
+    share = max(1, len(os.sched_getaffinity(0)) // int(workers))
+    assert torch.get_num_threads() == share

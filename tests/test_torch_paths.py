@@ -44,6 +44,8 @@ from fedfr_tpu_torch.federated.trainer import init_client_state, make_branch_tra
 from fedfr_tpu_torch.models import BCEModule, ToyNet
 from fedfr_tpu_torch.parallel.fedavg import spreadout
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 CLIENTS, IDS, IMG, E, PUB_IDS, PUB_IMGS = 2, 3, 16, 16, 6, 5
 
 

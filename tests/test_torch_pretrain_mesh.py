@@ -50,6 +50,8 @@ from fedfr_tpu_torch.models import build_backbone
 from fedfr_tpu_torch.ops import threefry
 from fedfr_tpu_torch.parallel import partial_fc as tpfc
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 TOL = 1e-5
 CLI_TOL = 1e-4
 BN_TOL = 1e-6

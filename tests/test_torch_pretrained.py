@@ -46,6 +46,8 @@ from fedfr_tpu_torch.federated import Server
 from fedfr_tpu_torch.federated.client import warn_if_collapsed
 from fedfr_tpu_torch.utils.checkpoint import load_native
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 CLIENTS, IDS, IMG, EMB, PUB_IDS, PUB_IMGS = 2, 3, 16, 16, 6, 5
 LOADED = ("loaded ", "preload ", "generated pretrain FC", "train from scratch")
 

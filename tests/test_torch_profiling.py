@@ -39,6 +39,8 @@ from fedfr_tpu_torch.federated import init_client_state, make_branch_train_step
 from fedfr_tpu_torch.models import BCEModule, build_backbone
 from fedfr_tpu_torch.utils import flops, profiling
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPAN_LINE = re.compile(r"span (\S+)\s+total\s+\S+s  calls\s+\d+  avg\s+\S+s$")
 MEMORY_LINE = re.compile(r"memory: device .* \| host maxrss \d+ MB$")

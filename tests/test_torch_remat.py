@@ -21,6 +21,8 @@ from fedfr_tpu.models import build_backbone as jax_backbone
 from fedfr_tpu_torch import interop
 from fedfr_tpu_torch.models import build_backbone
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 
 def _np_tree(t):
     return jax.tree_util.tree_map(np.array, t)

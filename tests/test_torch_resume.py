@@ -29,6 +29,8 @@ from fedfr_tpu_torch.federated import Server
 from fedfr_tpu_torch.models import ToyNet
 from fedfr_tpu_torch.utils.checkpoint import RoundCheckpointer
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 CLIENTS, IDS, IMG = 2, 3, 16
 
 

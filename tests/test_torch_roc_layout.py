@@ -13,6 +13,8 @@ import torch
 
 from fedfr_tpu_torch.ops import roc_hist
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 
 def _dyadic(n, e, seed):
     """Entries in {0, +-1/8, +-1/4}: every dot is exact in fp32, so any sum

@@ -26,6 +26,8 @@ from fedfr_tpu_torch.config import FedFRConfig
 from fedfr_tpu_torch.data import AllClientData, codec, write_split
 from fedfr_tpu_torch.federated import Server
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 NUM_CLIENTS, IDS, IMG, PUB_IDS = 2, 3, 16, 6
 
 

@@ -25,6 +25,8 @@ from fedfr_tpu_torch import interop
 from fedfr_tpu_torch.federated import init_client_state, make_branch_train_step
 from fedfr_tpu_torch.models import BCEModule, build_backbone
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 N_LOCAL, N_GLOBAL = 3, 4
 STEP_NO, LR = 3, 0.001  # run.sh --lr
 

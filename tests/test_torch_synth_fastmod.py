@@ -16,6 +16,8 @@ import torch
 
 from fedfr_tpu_torch.ops import synth_gen
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 SPANS = sorted({
     synth_gen.noise_span(18), synth_gen.noise_span(40),
     synth_gen.OFFSET_HI - synth_gen.OFFSET_LO,

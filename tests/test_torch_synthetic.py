@@ -48,6 +48,8 @@ from fedfr_tpu_torch.data import synthetic as tsyn
 from fedfr_tpu_torch.federated import Server
 from fedfr_tpu_torch.ops import threefry as tf
 
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+
 SPANS = [(30, 226), (-18, 19), (-20, 21), (1 << 26, 1 << 30), (0, 1), (5, 5),
          (-3, 4), (-2 ** 31, 2 ** 31 - 1)]
 SEEDS = [0, 100, 2 ** 31 - 1]
